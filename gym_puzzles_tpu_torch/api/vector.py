@@ -1,0 +1,91 @@
+"""Batched env: thousands of envs stepped in lockstep on one device.
+
+Port of ``gym_puzzles_tpu/api/vector.py``.  State tensors keep the env batch
+on their trailing axis; the public observation, action and reward are
+batch-first.  Randomness comes from a ``torch.Generator`` owned by the
+``VectorEnv`` (seeded by :meth:`VectorEnv.reset`) in place of the JAX
+package's per-env PRNG keys.
+
+Reset semantics are selectable:
+
+* ``reset_mode='reference'`` -- reset takes one uniform random action and
+  returns that step's observation, the reference contract (00.py:411).
+  Costs one physics step per reset.
+* ``reset_mode='fast'`` (default) -- reset returns the spawned state's
+  observation directly.  Same distribution over states up to one random
+  step; used for training/benchmarking where autoreset would otherwise pay
+  a second physics step on every env every step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gym_puzzles_tpu_torch.envs import common as cm
+from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
+from gym_puzzles_tpu_torch.envs.config import RewardParams
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the port runs on: ``cuda`` unless the caller names one.
+    With no device named and no CUDA, this raises: the port never moves
+    onto the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run the plain PyTorch engine on the CPU"
+        )
+    return torch.device("cuda")
+
+
+class VectorEnv:
+    """Batched env on one device: state in, state out."""
+
+    def __init__(self, logic: PuzzleEnvLogic, num_envs: int, auto_reset: bool = True,
+                 reset_mode: str = "fast", device=None):
+        if reset_mode not in ("fast", "reference"):
+            raise ValueError(f"reset_mode must be 'fast' or 'reference', got {reset_mode!r}")
+        self.logic = logic
+        self.cfg = logic.cfg
+        self.num_envs = int(num_envs)
+        self.auto_reset = auto_reset
+        self.reset_mode = reset_mode
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+
+    def default_params(self) -> RewardParams:
+        return self.logic.default_params()
+
+    def _reset_batch(self, params):
+        """Fresh states and their observations ([obs_dim, E]) for every env.
+        In reference mode the quirk's random step runs through the same
+        engine step as training."""
+        if self.reset_mode != "reference":
+            return self.logic.reset_fast(self.generator, self.num_envs, params)
+        state, act = self.logic.reset_spawn(self.generator, self.num_envs)
+        state, obs, _r, _d, _info = self.logic.step_fused(state, act, params)
+        # the random step does not count against the episode clock
+        return state.replace(t=torch.zeros_like(state.t)), obs
+
+    def reset(self, seed: int = 0, params: RewardParams | None = None):
+        """Seed the env's generator and spawn every env.
+        Returns (state, obs [E, obs_dim])."""
+        params = self.default_params() if params is None else params
+        self.generator.manual_seed(int(seed))
+        state, obs = self._reset_batch(params)
+        return state, obs.T
+
+    def step(self, state: cm.EnvState, action, params: RewardParams | None = None):
+        """action: [E, act_dim].  Returns (state, obs [E, obs_dim],
+        reward [E], done [E], info dict of [E] tensors).  With auto_reset,
+        finished envs come back freshly spawned, with their new obs."""
+        params = self.default_params() if params is None else params
+        act = torch.as_tensor(action, dtype=torch.float32, device=self.device).T
+        state, obs, reward, done, info = self.logic.step_fused(state, act, params)
+        if self.auto_reset:
+            r_state, r_obs = self._reset_batch(params)
+            state = cm.select(done, r_state, state)
+            obs = torch.where(done, r_obs, obs)
+        return state, obs.T, reward, done, info

@@ -1,0 +1,3 @@
+"""Batched 2D rigid body engine in PyTorch: the port of
+``gym_puzzles_tpu.engine``.  ``world.step`` is the plain version; the fused
+CUDA tick kernel is ``step_cuda.step_fused``."""

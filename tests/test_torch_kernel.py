@@ -1,0 +1,175 @@
+"""The fused tick kernel's wrapper and arithmetic, checked on the CPU, and the
+kernel itself on the card (marked ``cuda``; skipped without one).
+
+On the CPU:
+* pack then unpack of the kernel's planes is the identity;
+* ``step_cuda.step_fused`` on CPU tensors is the plain ``world.step``,
+  bitwise;
+* the kernel source compiled as host C++ (g++, no FMA contraction) against
+  the plain version: the 3-body push world within 1e-6 after 10 ticks,
+  v0, Heavy-v0 and L-block spawns within 1e-5 (only cos/sin implementations
+  differ), and the incremental position-pass trig within 1e-6 of the exact
+  one;
+* a table beyond the kernel's compile-time maxima is refused.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from gym_puzzles_tpu_torch.api.registry import _logic
+from gym_puzzles_tpu_torch.engine import shapes as shp
+from gym_puzzles_tpu_torch.engine import step_cuda
+from gym_puzzles_tpu_torch.engine import types
+from gym_puzzles_tpu_torch.engine import world
+from tests.torch_port_helpers import small_tables
+
+torch.set_num_threads(1)
+
+DT = 1.0 / 50.0
+
+
+def v0_inputs(E, seed, env_id="MultiRobotPuzzle-v0", block_shape="t"):
+    logic = _logic(env_id, block_shape)
+    gen = torch.Generator().manual_seed(seed)
+    state, _ = logic.reset_fast(gen, E, logic.default_params())
+    act = torch.rand((logic.cfg.act_dim, E), generator=gen) * 2 - 1
+    bodies, force, torque, wake = logic._control(state, act)
+    return logic.layout.table, bodies, state.contacts, force, torque, wake
+
+
+def test_pack_unpack_identity():
+    table, bodies, contacts, force, torque, wake = v0_inputs(8, 0)
+    # a state with contacts in it
+    bodies, contacts, _ = world.step(table, bodies, contacts, force, torque, wake, DT, 4, 2)
+    bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
+    B, P = table.num_bodies, table.num_pairs
+    assert bf.shape == (12 * B, 8) and pf.shape == (15 * P, 8) and pi.shape == (2 * P, 8)
+    # the output planes start with the input planes in the same order
+    pfo = torch.cat([pf, torch.zeros(2 * P, 8)])
+    b2, c2, info = step_cuda.unpack(table, bf[:8 * B].clone(), pfo, pi.clone())
+    for name in ("pos", "angle", "vel", "omega", "awake", "sleep_time"):
+        assert torch.equal(getattr(b2, name), getattr(bodies, name)), name
+    for name in ("flip", "local_normal", "local_point", "points", "ids", "count"):
+        assert torch.equal(getattr(c2.man, name), getattr(contacts.man, name)), name
+    for name in ("normal_impulse", "tangent_impulse", "touching"):
+        assert torch.equal(getattr(c2, name), getattr(contacts, name)), name
+    assert contacts.touching.any() and not info.begin.any()
+
+
+def test_cpu_entry_point_is_plain_step():
+    table, bodies, contacts, force, torque, wake = v0_inputs(6, 1)
+    args = (table, bodies, contacts, force, torque, wake, DT, 6, 3)
+    a = step_cuda.step_fused(*args)
+    b = world.step(*args)
+    for x, y in zip(a, b):
+        for name in x.__dataclass_fields__:
+            u, v = getattr(x, name), getattr(y, name)
+            if hasattr(u, "__dataclass_fields__"):
+                for n2 in u.__dataclass_fields__:
+                    assert torch.equal(getattr(u, n2), getattr(v, n2))
+            else:
+                assert torch.equal(u, v), name
+
+
+def test_oversize_table_refused():
+    box = shp.box_vertices(0.5, 0.5)
+    specs = [types.BodySpec(fixtures=[types.FixtureSpec(vertices=box, density=1.0)])
+             for _ in range(step_cuda.MAX_B + 1)]
+    with pytest.raises(ValueError, match="at most"):
+        step_cuda.world_struct(types.build_shape_table(specs))
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The kernel source built as host C++ with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel source as host C++")
+    out = tmp_path_factory.mktemp("host_kernel") / "step_fused_host.so"
+    subprocess.run([gxx, "-x", "c++", "-O2", "-shared", "-fPIC", "-ffp-contract=off",
+                    "-o", str(out), str(step_cuda.CSRC / "step_fused.cu")],
+                   check=True, capture_output=True, timeout=120)
+    lib = ctypes.CDLL(str(out))
+    vp = ctypes.c_void_p
+    lib.gpt_step_fused_host.argtypes = [vp] * 7 + [ctypes.c_int, ctypes.c_float,
+                                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.gpt_step_fused_host.restype = None
+    assert lib.gpt_world_bytes() == ctypes.sizeof(step_cuda.World)
+    return lib
+
+
+def host_tick(lib, incremental, table, bodies, contacts, force, torque, wake, dt, vi, pi):
+    bf, pf, pid = step_cuda.pack(bodies, contacts, force, torque, wake)
+    B, P, E = table.num_bodies, table.num_pairs, bf.shape[-1]
+    bfo = torch.full((8 * B, E), float("nan"))
+    pfo = torch.full((17 * P, E), float("nan"))
+    pio = torch.full((2 * P, E), -7, dtype=torch.int32)
+    w = step_cuda.world_struct(table)
+    lib.gpt_step_fused_host(ctypes.byref(w), bf.data_ptr(), pf.data_ptr(), pid.data_ptr(),
+                            bfo.data_ptr(), pfo.data_ptr(), pio.data_ptr(), E, dt, vi, pi,
+                            int(incremental))
+    return step_cuda.unpack(table, bfo, pfo, pio)
+
+
+def drive_push(tick, n=10):
+    table = small_tables()[1]
+    E = 3
+    origin = torch.tensor([(5.0, 5.0), (2.76, 5.5), (5.0, 3.26)])[..., None].expand(3, 2, E)
+    bodies = world.init_bodies(table, origin.contiguous(), torch.zeros(3, E))
+    contacts = world.init_contacts(table, E)
+    zf, zt = torch.zeros(3, 2, E), torch.zeros(3, E)
+    wake = torch.tensor([False, True, True])[:, None].expand(3, E)
+    v = torch.tensor([[4 / 3.0, 0.0], [0.0, 4 / 3.0]])[..., None].expand(2, 2, E)
+    for _ in range(n):
+        bodies = bodies.replace(vel=torch.cat([bodies.vel[:1], v]),
+                                omega=torch.cat([bodies.omega[:1], torch.zeros(2, E)]))
+        bodies, contacts, _ = tick(table, bodies, contacts, zf, zt, wake, DT, 8, 4)
+    return bodies, contacts
+
+
+def test_host_kernel_push_world(host_kernel):
+    bp, cp = drive_push(world.step)
+    assert cp.touching.any()
+    for incremental in (False, True):
+        bk, ck = drive_push(lambda *a: host_tick(host_kernel, incremental, *a))
+        torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-6)
+        torch.testing.assert_close(bk.angle, bp.angle, rtol=0, atol=1e-6)
+        torch.testing.assert_close(ck.normal_impulse, cp.normal_impulse, rtol=0, atol=1e-6)
+        assert torch.equal(ck.man.ids, cp.man.ids) and torch.equal(bk.awake, bp.awake)
+
+
+@pytest.mark.parametrize("env_id, block_shape", [
+    ("MultiRobotPuzzle-v0", "t"), ("MultiRobotPuzzleHeavy-v0", "t"), ("MultiRobotPuzzle-v0", "l")])
+def test_host_kernel_v0_spawns(host_kernel, env_id, block_shape):
+    args = v0_inputs(24, 2, env_id, block_shape) + (DT, 12, 6)
+    bp, cp, ip = world.step(*args)
+    bk, ck, ik = host_tick(host_kernel, False, *args)
+    assert cp.touching.any() and not cp.touching.all()
+    torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-5)
+    torch.testing.assert_close(bk.vel, bp.vel, rtol=0, atol=1e-5)
+    for name in ("ids", "count", "flip"):
+        assert torch.equal(getattr(ck.man, name), getattr(cp.man, name)), name
+    assert torch.equal(bk.awake, bp.awake) and torch.equal(ik.begin, ip.begin)
+    bi, ci, _ = host_tick(host_kernel, True, *args)
+    torch.testing.assert_close(bi.pos, bk.pos, rtol=0, atol=1e-6)
+    torch.testing.assert_close(bi.angle, bk.angle, rtol=0, atol=1e-6)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card chip_smoke.py runs these checks")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_against_plain_on_card(cuda_device):
+    import chip_smoke
+
+    chip_smoke.check_push_world(cuda_device)
+    chip_smoke.check_spawns(cuda_device, 1000, seed=1)
+    chip_smoke.check_trig(cuda_device)
