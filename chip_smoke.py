@@ -5,18 +5,27 @@
 
 Phases (each raises on failure; the script exits non-zero on any):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the fused tick kernel from ``gym_puzzles_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the build time and ptxas' register / spill report;
-3. hold the kernel against its plain PyTorch version (``world.step``) on the
-   card: the injected 3-body push world (10 ticks at 8/4), v0 random spawns
-   at 4096 envs (1 tick at 180/60), 1000 envs (the ragged edge), and the
-   exact against the incremental position-pass trig on a 12-tick v0 contact
-   drive;
-4. the main path: ``make("MultiRobotPuzzle-v0", num_envs=4096)`` with the
-   default device and backend, a reset, then 200 steps of random actions;
-   every output finite, and exactly 200 kernel launches;
-5. one JSON line describing each ported kernel (times, bound, launches);
-6. last line: ``{"ok": true, "device": {...}}``.
+2. build both kernels from ``gym_puzzles_tpu_torch/csrc`` (one nvcc each,
+   started together, sm_90a) and print the build time and ptxas' register /
+   spill report;
+3. hold the fused tick kernel against its plain PyTorch version
+   (``world.step``) on the card: the injected 3-body push world (10 ticks at
+   8/4), v0 random spawns at 4096 envs (1 tick at 180/60), 1000 envs (the
+   ragged edge), 4096 spawns each of Heavy-v0, v2 and v3 (the shapes the
+   main paths give it), and the exact against the incremental position-pass
+   trig on a 12-tick v0 contact drive;
+4. hold the contact-solve kernel against its plain version
+   (``solver_cuda.solve_contacts_plain``): the push world through the staged
+   tick, the constraints of 4096 v0 spawns, 1000 v0 spawns (ragged) and 4096
+   v2 spawns after the PyTorch prologue, exact against incremental trig on
+   each, and on 12-tick v0 and v2 contact drives;
+5. the main paths at 4096 envs and 180/60, 200 steps of random actions each
+   through ``make(...)`` with the default device: v0 fused, v0 and v2 staged
+   (``backend='pallas'``), v2 and v3 fused; every output finite; exactly
+   200 x frameskip launches of the path's kernel and none of the other;
+6. both kernels' times per variant, and one JSON line describing each ported
+   kernel (times, bound, launches);
+7. last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; imports nothing of JAX or the JAX package.
 """
@@ -27,6 +36,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -34,12 +44,13 @@ import torch
 from gym_puzzles_tpu_torch import make
 from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import shapes as shp
-from gym_puzzles_tpu_torch.engine import step_cuda, types, world
+from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
 DT = 1.0 / 50.0
 MAIN_STEPS = 200
+VI, PI = 180, 60  # the reference's solver iterations
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -52,6 +63,30 @@ OPS_POS_PAIR = {True: 229, False: 157}  # one position-sweep visit (incremental 
 OPS_POS_SWEEP_BODY = 40  # cos/sin of each dynamic body once per position sweep
 OPS_SETUP_PAIR = 190  # constraint setup of a pair
 OPS_BODY = 150  # transforms, integration, islands and sleep per body
+OPS_SOLVE_BODY = 40  # the solve kernel alone: island labels and integration per body
+
+VARIANTS = ("MultiRobotPuzzle-v0", "MultiRobotPuzzleHeavy-v0", "MultiRobotPuzzle-v2",
+            "MultiRobotPuzzle-v3")
+# incremental against exact position-pass trig: 10x what the JAX package
+# records for its kernels after 12 contact steps (4.8e-7 m, 3.3e-6 rad)
+TRIG_LIMITS = dict(pos=4.8e-6, angle=3.3e-5, impulse=1e-6)
+# the same on one solve of random spawns, whose deep overlaps the 60 position
+# sweeps resolve chaotically and whose coordinates reach 21 m (one float32
+# step there is 1.9e-6): ten such steps
+# (the trig mode touches the position pass only, so what the velocity pass
+# leaves -- velocities and impulses -- is equal)
+SPAWN_TRIG_LIMITS = dict(pos=2e-5, angle=3.3e-5, vel=0.0, impulse=0.0)
+# A kernel against its plain version on one solve of random spawns, largest
+# difference over all envs, those in contact included.  Measured on an H100
+# at 4096 envs: positions up to 1.3e-5 m; angles up to 1.8e-4 rad (v2, whose
+# wheel bodies have little inertia) and 6.2e-6 elsewhere; normal impulses, which
+# the deep overlaps of a spawn drive high, up to 8.5e-3 N s.  About ten times
+# each.  ``impulse_scale``, the largest impulse, is printed beside them.
+SPAWN_LIMITS = dict(no_contact_max=1e-4, median=1e-3, max=1e-4, angle=2e-3, impulse=0.1)
+# position_solved compares a min separation with -3 * linear_slop, so a
+# last-bit difference can flip it: at most this share of the envs in contact
+# (measured: no env differs)
+SOLVED_FLAGS_SHARE = 0.001
 
 
 def card() -> str:
@@ -75,27 +110,54 @@ def narrowphase_ops(table) -> int:
     return ops
 
 
-def kernel_bound(table, touching, vel_iters, pos_iters) -> dict:
-    """Least time the card could take for one tick of these envs: bytes each
-    read or written once at the HBM rate, against the float32 operations
-    these inputs need at the float32 rate (sweeps counted over the pairs in
-    contact only).  Returns the bound in ms, what bounds it, and its parts."""
-    B, P = table.num_bodies, table.num_pairs
-    E = touching.shape[-1]
-    nbytes = E * 4 * ((12 + 8) * B + (15 + 17) * P + 2 * 2 * P)
+def sweep_ops(table, per_pair, vel_iters, pos_iters) -> int:
+    """Float32 operations of the velocity and position sweeps over the pairs
+    in contact: ``per_pair[p]`` envs have pair ``p`` in contact."""
     dyn = ~table.is_static
-    n_dyn = int(dyn.sum())
-    per_pair = touching.sum(dim=-1).tolist()  # envs in contact, per pair
-    in_contact = int(sum(per_pair))
-    ops = E * (narrowphase_ops(table) + OPS_SETUP_PAIR * P + OPS_BODY * B
-               + pos_iters * OPS_POS_SWEEP_BODY * n_dyn)
+    ops = 0
     for p, n in enumerate(per_pair):
         dd = bool(dyn[table.pair_body_a[p]] and dyn[table.pair_body_b[p]])
         ops += n * (vel_iters * OPS_VEL_PAIR[dd] + pos_iters * OPS_POS_PAIR[dd])
+    return ops
+
+
+def bound(nbytes, ops, pairs_in_contact) -> dict:
+    """The larger of bytes at the HBM rate and operations at the float32
+    rate, in ms, with what bounds it and its parts."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return dict(ms=1e3 * max(t_bytes, t_ops), by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops, pairs_in_contact=in_contact,
+                bytes=nbytes, ops=ops, pairs_in_contact=pairs_in_contact,
                 bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops)
+
+
+def kernel_bound(table, touching, vel_iters, pos_iters) -> dict:
+    """Least time the card could take for one fused tick of these envs: bytes
+    each read or written once at the HBM rate, against the float32 operations
+    these inputs need at the float32 rate (sweeps counted over the pairs in
+    contact only)."""
+    B, P = table.num_bodies, table.num_pairs
+    E = touching.shape[-1]
+    nbytes = E * 4 * ((12 + 8) * B + (15 + 17) * P + 2 * 2 * P)
+    n_dyn = int((~table.is_static).sum())
+    per_pair = touching.sum(dim=-1).tolist()  # envs in contact, per pair
+    ops = E * (narrowphase_ops(table) + OPS_SETUP_PAIR * P + OPS_BODY * B
+               + pos_iters * OPS_POS_SWEEP_BODY * n_dyn)
+    ops += sweep_ops(table, per_pair, vel_iters, pos_iters)
+    return bound(nbytes, ops, int(sum(per_pair)))
+
+
+def solve_bound(table, vc, vel_iters, pos_iters) -> dict:
+    """The same for one launch of the contact-solve kernel: its (43 P + 14 B)
+    float32 planes per env, each read or written once, against the sweeps
+    over the pairs it solves."""
+    B, P = table.num_bodies, table.num_pairs
+    E = vc.k11.shape[-1]
+    nbytes = E * 4 * (43 * P + 14 * B)
+    n_dyn = int((~table.is_static).sum())
+    per_pair = (vc.solve & (vc.count > 0)).sum(dim=-1).tolist()
+    ops = E * (OPS_SOLVE_BODY * B + pos_iters * OPS_POS_SWEEP_BODY * n_dyn)
+    ops += sweep_ops(table, per_pair, vel_iters, pos_iters)
+    return bound(nbytes, ops, int(sum(per_pair)))
 
 
 def ticks(table, bodies, contacts, n, vi, pi, tick, control):
@@ -108,13 +170,27 @@ def ticks(table, bodies, contacts, n, vi, pi, tick, control):
     return bodies, contacts, info
 
 
-def exact_kernel(*args):
-    return step_cuda.step_fused(*args, incremental_trig=False)
+def fused_tick(incremental):
+    """The fused kernel's tick in one trig mode."""
+    return lambda *args: step_cuda.step_fused(*args, incremental_trig=incremental)
 
 
-def check_push_world(dev) -> dict:
+def staged_tick(incremental):
+    """The staged tick (``world.step_batched``) with the solve kernel in one
+    trig mode."""
+    def tick(table, bodies, contacts, force, torque, wake, dt, vi, pi):
+        solve_args, carry = world.before_solve(table, bodies, contacts, force, torque, wake, dt)
+        solved = solver_cuda.solve_contacts(table, *solve_args, dt, vi, pi,
+                                            incremental_trig=incremental)
+        return world.after_solve(table, solve_args, carry, solved, dt)
+    return tick
+
+
+def check_push_world(dev, tick=None, name="push world") -> dict:
     """T-block + two octagon agents pushing it (the JAX package's fused
-    kernel numerics world), 10 ticks at 8/4, kernel against plain."""
+    kernel numerics world), 10 ticks at 8/4, ``tick`` (default: the fused
+    kernel, exact trig) against plain."""
+    tick = fused_tick(False) if tick is None else tick
     T_BOXES = [(0.5, 0.5, 0.0, -0.5), (1.5, 0.5, 0.0, 0.5)]
     AGENT = [(-0.25, -0.75), (0.25, -0.75), (0.75, -0.25), (0.75, 0.25),
              (0.25, 0.75), (-0.25, 0.75), (-0.75, 0.25), (-0.75, -0.25)]
@@ -143,81 +219,159 @@ def check_push_world(dev) -> dict:
         omega = torch.cat([b.omega[:1], torch.zeros(2, E, device=dev)])
         return b.replace(vel=vel, omega=omega), zf, zt, wake
 
-    bk, ck, _ = ticks(table, bodies, contacts, 10, 8, 4, exact_kernel, control)
+    bk, ck, _ = ticks(table, bodies, contacts, 10, 8, 4, tick, control)
     bp, cp, _ = ticks(table, bodies, contacts, 10, 8, 4, world.step, control)
     if not bool(cp.touching.any()):
-        raise AssertionError("push world: no contact formed")
+        raise AssertionError(f"{name}: no contact formed")
     d = dict(pos=maxdiff(bk.pos, bp.pos), angle=maxdiff(bk.angle, bp.angle),
              impulse=maxdiff(ck.normal_impulse, cp.normal_impulse))
     limits = dict(pos=1e-5, angle=1e-6, impulse=1e-4)
-    report("push world 10 ticks 8/4", d, limits)
+    report(f"{name} 10 ticks 8/4", d, limits)
     if not (torch.equal(ck.man.ids, cp.man.ids) and torch.equal(bk.awake, bp.awake)):
-        raise AssertionError("push world: contact ids or awake flags differ")
+        raise AssertionError(f"{name}: contact ids or awake flags differ")
     return d
 
 
-def v0_spawn_tick(dev, E, seed):
-    """(table, bodies, contacts, force, torque, wake) of E fresh v0 spawns
+def spawn_tick(dev, E, seed, env_id=ENV_ID):
+    """(table, contacts, bodies, force, torque, wake) of E fresh spawns
     after random controls: one tick's inputs."""
-    logic = _logic(ENV_ID)
+    logic = _logic(env_id)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state, _obs = logic.reset_fast(gen, E, logic.default_params())
     act = torch.rand((logic.cfg.act_dim, E), generator=gen, device=dev) * 2 - 1
     return (logic.layout.table, state.contacts) + logic._control(state, act)
 
 
-def check_spawns(dev, E, seed) -> tuple[dict, float]:
-    """One 180/60 tick of E v0 random spawns, kernel against plain.  Returns
-    (differences, plain ms)."""
-    table, contacts, bodies, force, torque, wake = v0_spawn_tick(dev, E, seed)
-    args = (table, bodies, contacts, force, torque, wake, DT, 180, 60)
+def spawn_diffs(name, got, want, in_contact) -> dict:
+    """Differences over a batch of spawns, held to ``SPAWN_LIMITS``; ``got``
+    and ``want`` are (pos, angle, normal impulse).  ``max`` is the largest
+    position difference over all envs, so it reads the envs in contact."""
+    d = (got[0] - want[0]).abs().amax(dim=(0, 1))
+    free = ~in_contact
+    out = dict(no_contact_max=float(d[free].max()) if bool(free.any()) else 0.0,
+               median=float(d.median()), max=float(d.max()),
+               angle=maxdiff(got[1], want[1]), impulse=maxdiff(got[2], want[2]),
+               impulse_scale=float(want[2].abs().max()))
+    report(f"{name} ({int(in_contact.sum())} envs in contact)", out, SPAWN_LIMITS)
+    return out
+
+
+def check_spawns(dev, E, seed, env_id=ENV_ID) -> tuple[dict, float]:
+    """One 180/60 tick of E random spawns, fused kernel against plain.
+    Returns (differences, plain ms)."""
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id)
+    args = (table, bodies, contacts, force, torque, wake, DT, VI, PI)
     bk, ck, _ = step_cuda.step_fused(*args, incremental_trig=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bp, cp, _ = world.step(*args)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    d = (bk.pos - bp.pos).abs().amax(dim=(0, 1))
-    touch = cp.touching.any(dim=0)
-    out = dict(no_contact_max=float(d[~touch].max()) if bool((~touch).any()) else 0.0,
-               median=float(d.median()), max=float(d.max()))
-    report(f"v0 spawns E={E} 1 tick 180/60 ({int(touch.sum())} envs in contact)", out,
-           dict(no_contact_max=1e-4, median=1e-3))
+    name = f"fused, {env_id} spawns E={E} 1 tick {VI}/{PI}"
+    out = spawn_diffs(name, (bk.pos, bk.angle, ck.normal_impulse),
+                      (bp.pos, bp.angle, cp.normal_impulse), cp.touching.any(dim=0))
     if not torch.equal(bk.awake, bp.awake):
-        raise AssertionError(f"spawns E={E}: awake flags differ")
+        raise AssertionError(f"{name}: awake flags differ")
     if not all(bool(torch.isfinite(x).all()) for x in (bk.pos, bk.vel, ck.normal_impulse)):
-        raise AssertionError(f"spawns E={E}: kernel output not finite")
+        raise AssertionError(f"{name}: kernel output not finite")
     return out, plain_ms
 
 
-def check_trig(dev) -> dict:
-    """Exact against incremental position-pass trig: a 12-tick v0 contact
-    drive (agents pushing the block face-on) at 180/60, kernel only."""
-    logic = _logic(ENV_ID)
-    E = 512
-    origin = torch.tensor([[0.0, 8.0], [21.33, 8.0], [10.67, 0.0], [10.67, 16.0],
-                           [10.0, 8.0], [7.745, 8.5], [10.0, 6.245]], device=dev)
-    state = logic.inject(origin[..., None].expand(7, 2, E).contiguous(),
-                         torch.zeros(7, E, device=dev),
-                         torch.tensor([320.0, 262.5, 0.0], device=dev)[:, None].expand(3, E))
-    act = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=dev)[:, None].expand(6, E)
+def spawn_solve_args(dev, E, seed, env_id, vi=VI, pi=PI):
+    """(table, solve args) of E spawns one tick in: the first tick goes
+    through the fused kernel, so the second tick's constraints carry
+    impulses to warm start from."""
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id)
+    bodies, contacts, _ = step_cuda.step_fused(table, bodies, contacts, force, torque, wake,
+                                               DT, vi, pi)
+    solve_args, _carry = world.before_solve(table, bodies, contacts, force, torque, wake, DT)
+    return table, solve_args
+
+
+def check_solve_kernel(dev, env_id, E, seed, vi=VI, pi=PI) -> tuple[dict, float]:
+    """The contact-solve kernel against its plain version on the constraints
+    of E spawns after the PyTorch prologue: exact trig within the spawn
+    limits, incremental against exact.  Returns (differences, plain ms)."""
+    table, solve_args = spawn_solve_args(dev, E, seed, env_id, vi, pi)
+    vc = solve_args[0]
+    exact = solver_cuda.solve_contacts(table, *solve_args, DT, vi, pi, incremental_trig=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = solver_cuda.solve_contacts_plain(table, *solve_args, DT, vi, pi)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    in_contact = (vc.solve & (vc.count > 0)).any(dim=0)
+    if not bool(in_contact.any()) or not bool((vc.normal_impulse != 0).any()):
+        raise AssertionError(f"solve, {env_id}: no contact or nothing to warm start")
+    name = f"solve, {env_id} spawns E={E} {vi}/{pi}"
+    out = spawn_diffs(name, exact[2:5], plain[2:5], in_contact)
+    flags = (exact[6] != plain[6]).any(dim=0)
+    allowed = int(SOLVED_FLAGS_SHARE * int(in_contact.sum()))
+    print(f"  {name}: position_solved differs in {int(flags.sum())} envs (limit {allowed})",
+          flush=True)
+    if bool(flags[~in_contact].any()) or int(flags.sum()) > allowed:
+        raise AssertionError(f"{name}: position_solved differs in an env without contact, "
+                             f"or in more than {allowed} envs")
+    if not all(bool(torch.isfinite(x).all()) for x in exact[:6]):
+        raise AssertionError(f"{name}: kernel output not finite")
+    incr = solver_cuda.solve_contacts(table, *solve_args, DT, vi, pi, incremental_trig=True)
+    d = dict(pos=maxdiff(incr[2], exact[2]), angle=maxdiff(incr[3], exact[3]),
+             vel=maxdiff(incr[0], exact[0]), impulse=maxdiff(incr[4], exact[4]))
+    report(f"{name}, incremental vs exact trig", d, SPAWN_TRIG_LIMITS)
+    return out, plain_ms
+
+
+def contact_scene(env_id, E, dev):
+    """An injected contact drive: (origin [B, 2, E], angles [B, E], goal
+    [3, E], action [act_dim, E]) with agents pressed face-on against the
+    block and pushing it."""
+    if env_id == "MultiRobotPuzzle-v0":
+        origin = [[0.0, 8.0], [21.33, 8.0], [10.67, 0.0], [10.67, 16.0],
+                  [10.0, 8.0], [7.745, 8.5], [10.0, 6.245]]
+        angles = [0.0] * 7
+        goal, act = [320.0, 262.5, 0.0], [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    elif env_id == "MultiRobotPuzzle-v2":
+        # block centred; agent 0 heads +x into the wide box's left face,
+        # agent 1 heads +y into the stem's bottom; 2 mm overlap each, both at
+        # full throttle with a turn (the torque that spins the wheel bodies)
+        w, h = 1440 / 560.0, 810 / 560.0
+        origin = [[0.0, h / 2], [w, h / 2], [w / 2, 0.0], [w / 2, h],
+                  [w / 2, h / 2], [w / 2 - 0.3 - 0.093, h / 2 + 0.1],
+                  [w / 2, h / 2 - 0.2 - 0.093]]
+        angles = [0.0] * 5 + [1.5 * np.pi, 0.0]
+        goal, act = [0.8, 0.25, 0.0], [0.5, 1.0, -0.5, 1.0]
+    else:
+        raise ValueError(env_id)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    origin = t(origin)
+    B = origin.shape[0]
+    return (origin[..., None].expand(B, 2, E).contiguous(), t(angles)[:, None].expand(B, E),
+            t(goal)[:, None].expand(3, E), t(act)[:, None].expand(len(act), E))
+
+
+def check_trig(dev, env_id=ENV_ID, make_tick=fused_tick, name="fused") -> dict:
+    """Exact against incremental position-pass trig: a 12-tick contact
+    drive at 180/60 through ``make_tick(incremental)``, kernel only."""
+    logic = _logic(env_id)
+    origin, angles, goal, act = contact_scene(env_id, 512, dev)
+    state = logic.inject(origin, angles, goal)
     out = {}
     for incremental in (False, True):
+        tick = make_tick(incremental)
         s = state
         for _ in range(12):
             bodies, force, torque, wake = logic._control(s, act)
-            bodies, contacts, _ = step_cuda.step_fused(
-                logic.layout.table, bodies, s.contacts, force, torque, wake, DT, 180, 60,
-                incremental_trig=incremental)
+            bodies, contacts, _ = tick(logic.layout.table, bodies, s.contacts, force, torque,
+                                       wake, DT, VI, PI)
             s = s.replace(bodies=bodies, contacts=contacts)
         out[incremental] = s
     if not bool(out[False].contacts.touching.any()):
-        raise AssertionError("trig drive: no contact formed")
+        raise AssertionError(f"trig drive {env_id}: no contact formed")
     e, i = out[False], out[True]
     d = dict(pos=maxdiff(e.bodies.pos, i.bodies.pos), angle=maxdiff(e.bodies.angle, i.bodies.angle),
              impulse=maxdiff(e.contacts.normal_impulse, i.contacts.normal_impulse))
-    report("trig exact vs incremental, 12-tick v0 contact drive", d,
-           dict(pos=1e-6, angle=1e-6, impulse=1e-6))
+    limits = dict(pos=1e-6, angle=1e-6, impulse=1e-6) if env_id == ENV_ID else TRIG_LIMITS
+    report(f"{name}: trig exact vs incremental, 12-tick {env_id} contact drive", d, limits)
     return d
 
 
@@ -240,45 +394,80 @@ def cuda_ms(fn, n) -> float:
     return start.elapsed_time(stop) / n
 
 
-def run_main_path(dev, card_line) -> dict:
-    env = make(ENV_ID, num_envs=NUM_ENVS)
+def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STEPS) -> dict:
+    """``steps`` env steps of random actions through ``make`` at 4096 envs
+    and 180/60, with the launch counts set to 0 just before and read just
+    after: the path's kernel must have run steps x frameskip times and the
+    other kernel not at all."""
+    env = make(env_id, num_envs=NUM_ENVS, backend=backend)
     if env.device.type != "cuda":
         raise AssertionError(f"make() defaulted to {env.device}")
     state, obs = env.reset(seed=0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    acts = torch.rand((MAIN_STEPS + 10, NUM_ENVS, env.cfg.act_dim), generator=gen,
+    acts = torch.rand((steps + 10, NUM_ENVS, env.cfg.act_dim), generator=gen,
                       device=dev) * 2 - 1
     for k in range(10):  # warm-up
-        state, obs, reward, done, info = env.step(state, acts[MAIN_STEPS + k])
+        state, obs, reward, done, info = env.step(state, acts[steps + k])
     torch.cuda.synchronize()
 
     step_cuda.reset_launch_count()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     finite = torch.ones((), dtype=torch.bool, device=dev)
-    for k in range(MAIN_STEPS):
+    for k in range(steps):
         state, obs, reward, done, info = env.step(state, acts[k])
         finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
     stop.record()
     stop.synchronize()
-    launches = step_cuda.launch_count()
+    launches = {name: step_cuda.launch_count(name) for name in ("step_fused", "solve_contacts")}
     elapsed_s = start.elapsed_time(stop) / 1e3
 
-    if launches != MAIN_STEPS:
-        raise AssertionError(f"main path launched the kernel {launches} times in "
-                             f"{MAIN_STEPS} steps")
+    name = f"{env_id} backend={backend}"
+    mine, other = (("step_fused", "solve_contacts") if backend == "fused"
+                   else ("solve_contacts", "step_fused"))
+    if launches[mine] != steps * env.cfg.frameskip or launches[other] != 0:
+        raise AssertionError(f"{name}: launches {launches} in {steps} steps "
+                             f"(frameskip {env.cfg.frameskip})")
     if not bool(finite):
-        raise AssertionError("main path produced non-finite obs or rewards")
+        raise AssertionError(f"{name}: non-finite obs or rewards")
     if obs.shape != (NUM_ENVS, env.cfg.obs_dim) or reward.shape != (NUM_ENVS,):
-        raise AssertionError(f"main path shapes: obs {tuple(obs.shape)} reward {tuple(reward.shape)}")
-    for name in ("pos", "vel", "angle", "omega"):
-        if not bool(torch.isfinite(getattr(state.bodies, name)).all()):
-            raise AssertionError(f"main path state.bodies.{name} not finite")
-    rate = MAIN_STEPS * NUM_ENVS / elapsed_s
-    print(f"  {MAIN_STEPS} steps x {NUM_ENVS} envs in {elapsed_s:.3f} s: "
-          f"{rate:,.0f} env-steps/s  [{card_line}]", flush=True)
-    print(f"  kernel launches in the main path: {launches}", flush=True)
-    return dict(env=env, state=state, launches=launches, env_steps_per_s=rate)
+        raise AssertionError(f"{name}: obs {tuple(obs.shape)} reward {tuple(reward.shape)}")
+    for field in ("pos", "vel", "angle", "omega"):
+        if not bool(torch.isfinite(getattr(state.bodies, field)).all()):
+            raise AssertionError(f"{name}: state.bodies.{field} not finite")
+    rate = steps * NUM_ENVS / elapsed_s
+    print(f"  {name}: {steps} steps x {NUM_ENVS} envs in {elapsed_s:.3f} s: "
+          f"{rate:,.0f} env-steps/s; launches {launches}  [{card_line}]", flush=True)
+    return dict(launches=launches[mine], env_steps_per_s=rate)
+
+
+def time_kernels(dev, env_id, card_line) -> dict:
+    """Both kernels' time per launch on 4096 spawns of one variant at 180/60
+    (the solve kernel on the second tick's constraints), with their bounds."""
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, NUM_ENVS, 0, env_id)
+    bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
+    fused = lambda: step_cuda.launch(table, bf, pf, pi, DT, VI, PI)
+    _bfo, pfo, _pio = fused()
+    fused_ms = cuda_ms(fused, 10)
+    touching = pfo.view(len(step_cuda.P_OUT), table.num_pairs, NUM_ENVS)[
+        step_cuda.P_OUT.index("touch")] > 0.5
+    fused_bound = kernel_bound(table, touching, VI, PI)
+
+    table, solve_args = spawn_solve_args(dev, NUM_ENVS, 0, env_id)
+    planes = solver_cuda.pack(*solve_args)
+    solve = lambda: solver_cuda.launch(table, *planes, DT, VI, PI)
+    solve()
+    solve_ms = cuda_ms(solve, 10)
+    sbound = solve_bound(table, solve_args[0], VI, PI)
+    for name, ms, b in (("step_fused", fused_ms, fused_bound),
+                        ("solve_contacts", solve_ms, sbound)):
+        print(f"  {env_id} (B={table.num_bodies} P={table.num_pairs}) {name}: {ms:.3f} ms per "
+              f"launch; bound {b['ms']:.4f} ms ({b['by']}): {b['bytes']} bytes = "
+              f"{b['bytes_ms']:.4f} ms, {b['ops']} f32 ops = {b['ops_ms']:.4f} ms, "
+              f"{b['pairs_in_contact']} pairs in contact; {NUM_ENVS} envs {VI}/{PI}  "
+              f"[{card_line}]", flush=True)
+    return dict(fused_ms=fused_ms, fused_bound=fused_bound, solve_ms=solve_ms,
+                solve_bound=sbound)
 
 
 def main() -> int:
@@ -295,53 +484,68 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.perf_counter()
-    path, log = step_cuda.build()
-    print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "stack frame" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(m.KERNEL.build) for m in (step_cuda, solver_cuda)]
+        builds = [f.result() for f in builds]
+    print(f"  built {', '.join(path.name for path, _ in builds)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for _path, log in builds:
+        for line in log.splitlines():
+            if ("registers" in line or "stack frame" in line or "spill" in line
+                    or "Compiling entry" in line):
+                print(f"  ptxas: {line.strip()}", flush=True)
 
-    print("== 3. kernel against plain on the card", flush=True)
+    print("== 3. fused tick kernel against plain on the card", flush=True)
     check_push_world(dev)
     spawn_diff, plain_ms = check_spawns(dev, NUM_ENVS, seed=0)
     check_spawns(dev, 1000, seed=1)
+    plain_variants = {env_id: check_spawns(dev, NUM_ENVS, seed=2, env_id=env_id)[1]
+                      for env_id in VARIANTS[1:]}
     check_trig(dev)
 
-    print("== 4. main path", flush=True)
-    main_run = run_main_path(dev, card_line)
+    print("== 4. contact-solve kernel against plain on the card", flush=True)
+    check_push_world(dev, staged_tick(False), "staged push world")
+    solve_diff, solve_plain_ms = check_solve_kernel(dev, ENV_ID, NUM_ENVS, seed=0)
+    check_solve_kernel(dev, ENV_ID, 1000, seed=1)
+    _diff, solve_plain_v2_ms = check_solve_kernel(dev, "MultiRobotPuzzle-v2", NUM_ENVS,
+                                                  seed=2)
+    check_trig(dev, ENV_ID, staged_tick, "staged")
+    check_trig(dev, "MultiRobotPuzzle-v2", staged_tick, "staged")
+    check_trig(dev, "MultiRobotPuzzle-v2", fused_tick, "fused")
 
-    # kernel time at the main path's shapes: a tick of 4096 fresh v0 spawns
-    table, contacts, bodies, force, torque, wake = v0_spawn_tick(dev, NUM_ENVS, 0)
-    bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
-    launch = lambda: step_cuda.launch(table, bf, pf, pi, DT, 180, 60)
-    launch()
-    kernel_ms = cuda_ms(launch, 10)
-    _bfo, pfo, _pio = step_cuda.launch(table, bf, pf, pi, DT, 180, 60)
-    touching = pfo.view(len(step_cuda.P_OUT), table.num_pairs, NUM_ENVS)[
-        step_cuda.P_OUT.index("touch")] > 0.5
-    bound = kernel_bound(table, touching, 180, 60)
-    print(f"  kernel {kernel_ms:.3f} ms/tick, plain {plain_ms:.1f} ms/tick, bound "
-          f"{bound['ms']:.4f} ms ({bound['by']}) at {NUM_ENVS} envs 180/60  [{card_line}]",
-          flush=True)
-    print(f"  bound parts: {bound['bytes']} bytes = {bound['bytes_ms']:.4f} ms, {bound['ops']} "
-          f"f32 ops = {bound['ops_ms']:.4f} ms ({bound['pairs_in_contact']} pairs in contact)",
-          flush=True)
+    print("== 5. main paths", flush=True)
+    fused_run = run_main_path(dev, card_line)
+    staged_run = run_main_path(dev, card_line, ENV_ID, "pallas")
+    run_main_path(dev, card_line, "MultiRobotPuzzle-v2", "pallas")
+    run_main_path(dev, card_line, "MultiRobotPuzzle-v2", "fused")
+    run_main_path(dev, card_line, "MultiRobotPuzzle-v3", "fused")
 
-    print("== 5. kernels", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "step_fused",
-        "route": "cuda",
-        "source": "gym_puzzles_tpu_torch/csrc/step_fused.cu",
-        "replaces": "gym_puzzles_tpu/engine/step_pallas.py:539",
-        "launches": main_run["launches"],
-        "max_abs_err": spawn_diff["max"],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound["ms"],
-        "bound_by": bound["by"],
-        "library_ms": None,
-        "checked": True,
-    }]}), flush=True)
+    print("== 6. kernels", flush=True)
+    times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
+    v0 = times[ENV_ID]
+    print(f"  plain versions on {NUM_ENVS} v0 spawns {VI}/{PI}: world.step {plain_ms:.1f} ms per "
+          f"tick, solve_contacts_plain {solve_plain_ms:.1f} ms per solve  [{card_line}]",
+          flush=True)
+    print(f"  plain versions on {NUM_ENVS} spawns {VI}/{PI}: world.step "
+          + ", ".join(f"{env_id} {ms:.1f} ms" for env_id, ms in plain_variants.items())
+          + f"; solve_contacts_plain MultiRobotPuzzle-v2 {solve_plain_v2_ms:.1f} ms  "
+          f"[{card_line}]", flush=True)
+    common = dict(route="cuda", library_ms=None, checked=True)
+    print(json.dumps({"kernels": [
+        dict(common, name="step_fused",
+             source="gym_puzzles_tpu_torch/csrc/step_fused.cu",
+             replaces="gym_puzzles_tpu/engine/step_pallas.py:539",
+             launches=fused_run["launches"], max_abs_err=spawn_diff["max"],
+             ms=v0["fused_ms"], plain_ms=plain_ms,
+             bound_ms=v0["fused_bound"]["ms"], bound_by=v0["fused_bound"]["by"]),
+        dict(common, name="solve_contacts",
+             source="gym_puzzles_tpu_torch/csrc/solve_contacts.cu",
+             replaces="gym_puzzles_tpu/engine/solver_pallas.py:557",
+             launches=staged_run["launches"],
+             max_abs_err=solve_diff["max"],
+             ms=v0["solve_ms"], plain_ms=solve_plain_ms,
+             bound_ms=v0["solve_bound"]["ms"], bound_by=v0["solve_bound"]["by"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,16 @@ Reset semantics are selectable:
   observation directly.  Same distribution over states up to one random
   step; used for training/benchmarking where autoreset would otherwise pay
   a second physics step on every env every step.
+
+The engine tick behind a step is selectable too:
+
+* ``backend='fused'`` (default) -- the whole tick in one launch of the fused
+  CUDA kernel (``engine/step_cuda.py``).
+* ``backend='pallas'`` -- the staged tick, named as in the JAX package: the
+  narrow phase, islands and sleep bookkeeping as PyTorch ops around one
+  launch of the CUDA contact-solve kernel (``engine/solver_cuda.py``).
+
+On the CPU both run the plain PyTorch engine.
 """
 
 from __future__ import annotations
@@ -40,13 +50,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+BACKENDS = ("fused", "pallas")
+
+
 class VectorEnv:
     """Batched env on one device: state in, state out."""
 
     def __init__(self, logic: PuzzleEnvLogic, num_envs: int, auto_reset: bool = True,
-                 reset_mode: str = "fast", device=None):
+                 reset_mode: str = "fast", device=None, backend: str = "fused"):
         if reset_mode not in ("fast", "reference"):
             raise ValueError(f"reset_mode must be 'fast' or 'reference', got {reset_mode!r}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        self.backend = backend
+        self._step = logic.step_fused if backend == "fused" else logic.step_batched
         self.logic = logic
         self.cfg = logic.cfg
         self.num_envs = int(num_envs)
@@ -65,7 +82,7 @@ class VectorEnv:
         if self.reset_mode != "reference":
             return self.logic.reset_fast(self.generator, self.num_envs, params)
         state, act = self.logic.reset_spawn(self.generator, self.num_envs)
-        state, obs, _r, _d, _info = self.logic.step_fused(state, act, params)
+        state, obs, _r, _d, _info = self._step(state, act, params)
         # the random step does not count against the episode clock
         return state.replace(t=torch.zeros_like(state.t)), obs
 
@@ -83,7 +100,7 @@ class VectorEnv:
         finished envs come back freshly spawned, with their new obs."""
         params = self.default_params() if params is None else params
         act = torch.as_tensor(action, dtype=torch.float32, device=self.device).T
-        state, obs, reward, done, info = self.logic.step_fused(state, act, params)
+        state, obs, reward, done, info = self._step(state, act, params)
         if self.auto_reset:
             r_state, r_obs = self._reset_batch(params)
             state = cm.select(done, r_state, state)

@@ -6,6 +6,10 @@ last axis of every array -- the layout of ``VectorEnv(batch_axis=-1)`` on
 both sides.  This module needs neither JAX nor the JAX package: the caller
 turns the JAX tree into dicts (its fields are dataclass fields).
 
+The contact solve's inputs go across the same way
+(:func:`constraints_from_numpy`, :func:`manifold_from_numpy`), so both
+packages' ``solve_contacts`` can be given the same constraints.
+
 JAX PRNG keys are not carried: the port's ``VectorEnv`` owns a
 ``torch.Generator``.
 """
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch.engine.narrowphase import Manifold
+from gym_puzzles_tpu_torch.engine.solver import VelocityConstraints
 from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, ShapeTable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 
@@ -46,6 +51,17 @@ def state_from_numpy(tree, device=None) -> EnvState:
     contacts with their manifold, flags, distances, goal_pos, t,
     done_status), keeping each array's dtype."""
     return from_numpy(EnvState, tree, device)
+
+
+def constraints_from_numpy(tree, device=None) -> VelocityConstraints:
+    """The port's VelocityConstraints from a dict of numpy arrays keyed by
+    field name, env axis last ([P, ..., E])."""
+    return from_numpy(VelocityConstraints, tree, device)
+
+
+def manifold_from_numpy(tree, device=None) -> Manifold:
+    """The port's Manifold from a dict of numpy arrays, env axis last."""
+    return from_numpy(Manifold, tree, device)
 
 
 def state_to_numpy(state) -> dict:

@@ -36,19 +36,8 @@
 // Floating point: no fast-math; cosf/sinf/sqrtf.  nvcc contracts a*b+c into
 // FMA by default, so results differ from the plain PyTorch version (which
 // rounds every product) in the last bits.
-#include <math.h>
-
-#ifndef __CUDACC__
-// Without nvcc the tick body compiles as host C++ (g++ -x c++), which is how
-// tests/test_torch_kernel.py holds its arithmetic against the plain version
-// on the CPU.  The port itself never runs this build.
-#include <algorithm>
-#define __device__
-#define __forceinline__ inline
-using std::min;
-static inline float __fmul_rn(float a, float b) { return a * b; }
-#endif
-
+// Without nvcc this file compiles as host C++ (see tick.cuh), exporting
+// gpt_step_fused_host.
 #include "tick.cuh"
 
 namespace {

@@ -5,9 +5,8 @@
 // integration, position sweep -- are the CUDA counterparts of the solver
 // phase generators in gym_puzzles_tpu/engine/solver_pallas.py
 // (_warm_start, _vel_sweep, _integrate, _pos_sweep), which the two TPU
-// kernels share.  The fused tick kernel (step_fused.cu) calls them; the
-// later port of the staged solve kernel (solver_pallas._build_kernel) is
-// meant to call the same functions.
+// kernels share.  The fused tick kernel (step_fused.cu) and the staged
+// contact-solve kernel (solve_contacts.cu) both call them.
 //
 // Arithmetic follows the plain PyTorch version
 // (gym_puzzles_tpu_torch/engine/solver.py) operation for operation: same
@@ -17,13 +16,26 @@
 // position are skipped, which is exact (they are zero / never updated).
 #pragma once
 
+#include <math.h>
+
+#ifndef __CUDACC__
+// Without nvcc the kernel bodies compile as host C++ (g++ -x c++), which is
+// how the CPU tests hold their arithmetic against the plain versions.  The
+// port itself never runs this build.
+#include <algorithm>
+#define __device__
+#define __forceinline__ inline
+using std::min;
+static inline float __fmul_rn(float a, float b) { return a * b; }
+#endif
+
 #define GPT_MAX_B 16  // bodies per world
 #define GPT_MAX_F 32  // fixtures per world
 #define GPT_MAX_P 64  // contact pairs per world
 #define GPT_MAX_V 8   // vertices per fixture (Box2D's b2_maxPolygonVertices)
 
 // Everything static about one world variant, copied into __constant__
-// memory by the host wrapper (engine/step_cuda.py builds the same layout
+// memory by the host wrapper (engine/_cuda_build.py builds the same layout
 // with ctypes; gpt_world_bytes() lets it check the size).  Every field is
 // 4 bytes wide, so the C and ctypes layouts have no padding to disagree on.
 // The scalar constants are float32-rounded on the host, exactly as PyTorch

@@ -1,0 +1,243 @@
+"""What the hand-written CUDA kernels' wrappers share: the build, the
+binding, the world table and the launch counts.
+
+* Build: one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` per
+  kernel source into a shared library with a plain C interface, at first
+  use, into ``_build/`` beside this package (listed in ``.gitignore``),
+  keyed by a hash of the sources and flags.
+* Binding: ``ctypes``; pointers and the stream go as ``c_void_p``.  A kernel
+  runs on ``torch.cuda.current_stream()``; its C function returns
+  ``cudaGetLastError()`` and the wrapper raises when it is not 0.
+* The static world (:class:`ShapeTable`) goes into ``__constant__`` memory
+  as ``struct World`` of ``csrc/tick.cuh``.  Each kernel's library has its
+  own copy of that symbol and its own ``gpt_set_world``; a table is copied
+  again only when it changes.
+* Each :class:`CudaKernel` counts its launches; :func:`launch_count` reads a
+  count by the kernel's name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from gym_puzzles_tpu_torch.engine import narrowphase as nph
+from gym_puzzles_tpu_torch.engine import shapes as shp
+from gym_puzzles_tpu_torch.engine import solver as slv
+from gym_puzzles_tpu_torch.engine.types import ShapeTable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HEADERS = ("tick.cuh",)  # included by every kernel source
+
+# compile-time maxima of csrc/tick.cuh
+MAX_B, MAX_F, MAX_P, MAX_V = 16, 32, 64, shp.MAX_POLYGON_VERTICES
+
+_c_int, _c_float = ctypes.c_int, ctypes.c_float
+
+
+class World(ctypes.Structure):
+    """ctypes mirror of ``struct World`` in csrc/tick.cuh."""
+
+    _fields_ = [
+        ("B", _c_int), ("F", _c_int), ("P", _c_int), ("n_dyn", _c_int), ("n_dd", _c_int),
+        ("dyn", _c_int * MAX_B), ("dyn_bodies", _c_int * MAX_B),
+        ("inv_m", _c_float * MAX_B), ("inv_i", _c_float * MAX_B),
+        ("lcx", _c_float * MAX_B), ("lcy", _c_float * MAX_B),
+        ("lin_damp", _c_float * MAX_B), ("ang_damp", _c_float * MAX_B),
+        ("fix_count", _c_int * MAX_F),
+        ("fix_verts", _c_float * (MAX_F * MAX_V * 2)),
+        ("fix_normals", _c_float * (MAX_F * MAX_V * 2)),
+        ("ia", _c_int * MAX_P), ("ib", _c_int * MAX_P),
+        ("fa", _c_int * MAX_P), ("fb", _c_int * MAX_P),
+        ("rep", _c_int * MAX_P), ("dd_pairs", _c_int * MAX_P),
+        ("fric", _c_float * MAX_P), ("rest", _c_float * MAX_P), ("m_sum", _c_float * MAX_P),
+    ] + [(name, _c_float) for name in (
+        "total_radius", "clip_tol", "polygon_radius", "linear_slop", "baumgarte",
+        "max_linear_correction", "max_translation", "max_translation_sq",
+        "max_rotation", "max_rotation_sq", "velocity_threshold", "max_condition",
+        "lin_sleep_tol_sq", "ang_sleep_tol_sq", "time_to_sleep", "pos_done_sep",
+        "rot_c2", "rot_c4", "rot_s3", "rot_s5",
+    )]
+
+
+def world_struct(table: ShapeTable) -> World:
+    """The kernels' view of a static table.  Raises ValueError for a table
+    beyond the kernels' compile-time maxima."""
+    B, F, P = table.num_bodies, table.num_fixtures, table.num_pairs
+    if B > MAX_B or F > MAX_F or P > MAX_P:
+        raise ValueError(
+            f"table has {B} bodies, {F} fixtures, {P} pairs; the CUDA kernels "
+            f"take at most {MAX_B}, {MAX_F}, {MAX_P}"
+        )
+    dyn = ~table.is_static
+    w = World()
+    w.B, w.F, w.P = B, F, P
+    dyn_bodies = [b for b in range(B) if dyn[b]]
+    dd = [p for _a, _b, p in slv.dd_links(table)]
+    w.n_dyn, w.n_dd = len(dyn_bodies), len(dd)
+
+    def fill(field, values):
+        arr = getattr(w, field)
+        for i, v in enumerate(values):
+            arr[i] = v
+
+    fill("dyn", [int(d) for d in dyn])
+    fill("dyn_bodies", dyn_bodies)
+    fill("inv_m", table.inv_mass)
+    fill("inv_i", table.inv_inertia)
+    fill("lcx", table.local_center[:, 0])
+    fill("lcy", table.local_center[:, 1])
+    fill("lin_damp", table.linear_damping)
+    fill("ang_damp", table.angular_damping)
+    fill("fix_count", table.fix_count)
+    verts = np.zeros((MAX_F, MAX_V, 2), np.float32)
+    normals = np.zeros((MAX_F, MAX_V, 2), np.float32)
+    verts[:F], normals[:F] = table.fix_verts, table.fix_normals
+    fill("fix_verts", verts.reshape(-1))
+    fill("fix_normals", normals.reshape(-1))
+    pa, pb = table.pair_body_a, table.pair_body_b
+    fill("ia", pa)
+    fill("ib", pb)
+    fill("fa", table.pair_fix_a)
+    fill("fb", table.pair_fix_b)
+    fill("rep", [int(pa[p]) if dyn[pa[p]] else int(pb[p]) for p in range(P)])
+    fill("dd_pairs", dd)
+    fill("fric", table.pair_friction)
+    fill("rest", table.pair_restitution)
+    fill("m_sum", (table.inv_mass[pa] + table.inv_mass[pb]).astype(np.float32))
+    # the plain version's Python-float constants, rounded to float32 as
+    # PyTorch rounds a Python scalar against a float32 tensor
+    consts = dict(
+        total_radius=nph.TOTAL_RADIUS, clip_tol=nph.CLIP_TOL,
+        polygon_radius=shp.POLYGON_RADIUS, linear_slop=shp.LINEAR_SLOP,
+        baumgarte=slv.BAUMGARTE, max_linear_correction=slv.MAX_LINEAR_CORRECTION,
+        max_translation=slv.MAX_TRANSLATION, max_translation_sq=slv.MAX_TRANSLATION**2,
+        max_rotation=slv.MAX_ROTATION, max_rotation_sq=slv.MAX_ROTATION**2,
+        velocity_threshold=slv.VELOCITY_THRESHOLD, max_condition=slv.MAX_CONDITION_NUMBER,
+        lin_sleep_tol_sq=slv.LINEAR_SLEEP_TOL_SQ, ang_sleep_tol_sq=slv.ANGULAR_SLEEP_TOL_SQ,
+        time_to_sleep=slv.TIME_TO_SLEEP, pos_done_sep=-3.0 * shp.LINEAR_SLOP,
+        rot_c2=0.5, rot_c4=1.0 / 24.0, rot_s3=1.0 / 6.0, rot_s5=1.0 / 120.0,
+    )
+    for name, value in consts.items():
+        setattr(w, name, float(np.float32(value)))
+    return w
+
+
+def _nvcc() -> str:
+    for path in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+KERNELS: dict[str, "CudaKernel"] = {}
+
+
+class CudaKernel:
+    """One kernel source: its build, its loaded library, the table last
+    copied to each device's constant memory, and the count of its launches."""
+
+    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+        self.name, self.source, self.entry, self.argtypes = name, source, entry, argtypes
+        self.lib = None
+        self.uploaded = {}  # device index -> (table, World kept alive)
+        self.launches = 0
+        self._lock = threading.Lock()
+        KERNELS[name] = self
+
+    def build(self, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+        """Compile the source for sm_90a into a shared library, unless a
+        build of the same sources and flags exists.  Returns (library path,
+        the compiler's output -- ptxas registers, stack frame and spills)."""
+        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for name in (self.source,) + HEADERS:
+            digest.update((CSRC / name).read_bytes())
+        lib = Path(build_dir) / f"{self.name}_{digest.hexdigest()[:16]}.so"
+        log_path = lib.with_suffix(".log")
+        if lib.exists():
+            return lib, log_path.read_text() if log_path.exists() else ""
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+        return lib, log
+
+    def load(self):
+        with self._lock:
+            if self.lib is None:
+                path, _log = self.build()
+                lib = ctypes.CDLL(str(path))
+                vp = ctypes.c_void_p
+                lib.gpt_world_bytes.argtypes = []
+                lib.gpt_world_bytes.restype = _c_int
+                lib.gpt_set_world.argtypes = [vp, vp]
+                lib.gpt_set_world.restype = _c_int
+                fn = getattr(lib, self.entry)
+                fn.argtypes = self.argtypes
+                fn.restype = _c_int
+                if lib.gpt_world_bytes() != ctypes.sizeof(World):
+                    raise RuntimeError("csrc/tick.cuh World and _cuda_build.World disagree")
+                self.lib = lib
+        return self.lib
+
+    def set_world(self, table: ShapeTable, device: torch.device, stream: int):
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        held = self.uploaded.get(index)
+        if held is not None and held[0] is table:
+            return
+        w = world_struct(table)
+        err = self.lib.gpt_set_world(ctypes.byref(w), stream)
+        if err != 0:
+            raise RuntimeError(f"copying the world table to the card failed: CUDA error {err}")
+        self.uploaded[index] = (table, w)
+
+    def launch(self, table: ShapeTable, device: torch.device, *args):
+        """Copy ``table`` if it changed, call the entry point with ``args``
+        and the current stream of ``device``, raise on a CUDA error, and
+        count the launch."""
+        lib = self.load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            self.set_world(table, device, stream)
+            err = getattr(lib, self.entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+def launch_count(name: str) -> int:
+    """Launches of the kernel ``name`` in this process."""
+    return KERNELS[name].launches
+
+
+def reset_launch_counts():
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def check_planes(kernel: str, device: torch.device, planes):
+    """Raise unless each (name, tensor, dtype, shape) is a contiguous tensor
+    of that dtype and shape on ``device``, which must be a CUDA device."""
+    if device.type != "cuda":
+        raise ValueError(f"the {kernel} kernel takes CUDA tensors, got {device}")
+    for name, x, dtype, shape in planes:
+        if (x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous()
+                or x.device != device):
+            raise ValueError(f"{name}: expected contiguous {dtype} {list(shape)} on {device}, "
+                             f"got {x.dtype} {list(x.shape)} on {x.device}")

@@ -18,6 +18,10 @@ tick for a batch of envs, env axis last on every tensor:
 is held against it.  At the reference's 180/60 iterations it issues a few
 hundred thousand small tensor operations per tick, so it is slow in eager
 mode; the kernel exists for speed.
+
+:func:`step_batched` is the staged tick: the same PyTorch ops around the
+contact solve, and the solve itself in the CUDA solve kernel
+(``engine/solver_cuda.py``) when the tensors lie on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from gym_puzzles_tpu_torch.engine import narrowphase as nph
 from gym_puzzles_tpu_torch.engine import solver as slv
+from gym_puzzles_tpu_torch.engine import solver_cuda
 from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, Replaceable, ShapeTable
 
 
@@ -140,13 +145,15 @@ def _select(mask, new, old):
                            for f in dataclasses.fields(nph.Manifold)})
 
 
-def step(table: ShapeTable, bodies: Bodies, contacts: Contacts, force, torque, wake,
-         dt: float, velocity_iters: int, position_iters: int):
-    """One physics tick for a batch of envs.
+def before_solve(table: ShapeTable, bodies: Bodies, contacts: Contacts, force, torque, wake,
+                 dt: float):
+    """The tick up to the contact solve: control wakes, narrow phase, touch
+    events, impulse matching, islands, wake propagation, velocity
+    integration and constraint setup.
 
-    ``force`` [B, 2, E] / ``torque`` [B, E] are this tick's accumulators;
-    ``wake`` [B, E] bool marks bodies the controls woke.  Returns
-    (bodies, contacts, StepInfo)."""
+    Returns (solve_args, carry): ``solve_args`` = (vc, man, pos, angle, vel,
+    omega, active, link), what ``solver_cuda.solve_contacts`` takes after the
+    table; ``carry`` is what :func:`after_solve` needs besides."""
     dev = bodies.angle.device
     dyn = _const(~table.is_static, dev)[:, None]  # [B, 1]
 
@@ -192,36 +199,71 @@ def step(table: ShapeTable, bodies: Bodies, contacts: Contacts, force, torque, w
     vel = torch.where(active[:, None], vel_i * lin_k[:, None, None], bodies.vel)
     omega = torch.where(active, omega_i * ang_k[:, None], bodies.omega)
 
-    # -- contact solve ----------------------------------------------------
+    # -- constraint setup; islands are made of touching dynamic-dynamic pairs
     vc = slv.init_velocity_constraints(
         table, man, bodies.pos, bodies.angle, vel, omega, matched_n, matched_t, active
     )
-    vel, omega = slv.warm_start(table, vc, vel, omega)
-    vel, omega, vc = slv.solve_velocity_constraints(table, vc, vel, omega, velocity_iters)
+    both_dyn = _const(~table.is_static[table.pair_body_a] & ~table.is_static[table.pair_body_b],
+                      dev)[:, None]
+    solve_args = (vc, man, bodies.pos, bodies.angle, vel, omega, active, touching & both_dyn)
+    carry = dict(labels=labels, awake=awake, sleep_time=sleep_time, matched_n=matched_n,
+                 matched_t=matched_t, touching=touching, begin=begin, end=end)
+    return solve_args, carry
 
-    pos, angle, vel, omega = slv.integrate_positions(
-        bodies.pos, bodies.angle, vel, omega, dt, active
-    )
-    pos, angle, pos_solved = slv.solve_position_constraints(
-        table, man, pos, angle, position_iters, vc.solve, labels
-    )
+
+def after_solve(table: ShapeTable, solve_args, carry, solved, dt: float):
+    """The tick after the contact solve: sleep bookkeeping and the impulses
+    stored for the next tick's warm start.  ``solved`` is what
+    ``solve_contacts`` returned.  Returns (bodies, contacts, StepInfo)."""
+    vc, man = solve_args[0], solve_args[1]
+    vel, omega, pos, angle, n_imp, t_imp, pos_solved = solved
 
     # -- sleep bookkeeping (zeroes velocities of islands at rest) ----------
     awake, sleep_time, vel, omega = slv.update_sleep(
-        table, labels, awake, sleep_time, vel, omega, dt, pos_solved
+        table, carry["labels"], carry["awake"], carry["sleep_time"], vel, omega, dt, pos_solved
     )
 
     # -- store impulses for next-tick warm start (b2ContactSolver::
     # StoreImpulses; degraded second points keep their matched value) ------
-    slot = torch.arange(2, device=dev)[None, :, None]
+    slot = torch.arange(2, device=angle.device)[None, :, None]
     live = vc.solve[:, None] & (slot < vc.count[:, None])
-    stored_n = torch.where(live, vc.normal_impulse, matched_n)
-    stored_t = torch.where(live, vc.tangent_impulse, matched_t)
+    stored_n = torch.where(live, n_imp, carry["matched_n"])
+    stored_t = torch.where(live, t_imp, carry["matched_t"])
 
+    touching = carry["touching"]
     new_contacts = Contacts(
         man=man, normal_impulse=stored_n, tangent_impulse=stored_t, touching=touching,
     )
     new_bodies = Bodies(
         pos=pos, angle=angle, vel=vel, omega=omega, awake=awake, sleep_time=sleep_time
     )
-    return new_bodies, new_contacts, StepInfo(touching=touching, begin=begin, end=end)
+    return new_bodies, new_contacts, StepInfo(touching=touching, begin=carry["begin"],
+                                              end=carry["end"])
+
+
+def _tick(table, bodies, contacts, force, torque, wake, dt, velocity_iters, position_iters,
+          solve):
+    """One physics tick with the contact solve done by ``solve``."""
+    solve_args, carry = before_solve(table, bodies, contacts, force, torque, wake, dt)
+    solved = solve(table, *solve_args, dt, velocity_iters, position_iters)
+    return after_solve(table, solve_args, carry, solved, dt)
+
+
+def step(table: ShapeTable, bodies: Bodies, contacts: Contacts, force, torque, wake,
+         dt: float, velocity_iters: int, position_iters: int):
+    """One physics tick for a batch of envs, all of it plain PyTorch ops.
+
+    ``force`` [B, 2, E] / ``torque`` [B, E] are this tick's accumulators;
+    ``wake`` [B, E] bool marks bodies the controls woke.  Returns
+    (bodies, contacts, StepInfo)."""
+    return _tick(table, bodies, contacts, force, torque, wake, dt, velocity_iters,
+                 position_iters, solver_cuda.solve_contacts_plain)
+
+
+def step_batched(table: ShapeTable, bodies: Bodies, contacts: Contacts, force, torque, wake,
+                 dt: float, velocity_iters: int, position_iters: int):
+    """:func:`step` with the contact solve in the CUDA solve kernel
+    (``solver_cuda.solve_contacts``: one launch per tick on CUDA tensors, the
+    plain solve on CPU tensors).  Same contract, same semantics."""
+    return _tick(table, bodies, contacts, force, torque, wake, dt, velocity_iters,
+                 position_iters, solver_cuda.solve_contacts)

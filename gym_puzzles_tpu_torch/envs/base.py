@@ -117,6 +117,17 @@ class PuzzleEnvLogic:
         )
         return self._finish(state, bodies, contacts, goal_contact, wall_contact, params)
 
+    def step_batched(self, state: cm.EnvState, action, params: RewardParams):
+        """:meth:`step_fused` with each engine tick staged instead: the
+        narrow phase and bookkeeping as PyTorch ops around the CUDA
+        contact-solve kernel (the plain solve on the CPU)."""
+        bodies, force, torque, wake = self._control(state, action)
+        bodies, contacts, goal_contact, wall_contact = cm.physics_batched(
+            self.layout, self.cfg, bodies, state.contacts, force, torque, wake,
+            state.goal_contact, state.wall_contact,
+        )
+        return self._finish(state, bodies, contacts, goal_contact, wall_contact, params)
+
     def _finish(self, state, bodies, contacts, goal_contact, wall_contact,
                 params: RewardParams):
         """Post-physics: distances, obs, reward, termination, state assembly."""

@@ -108,6 +108,15 @@ def physics_fused(layout: WorldLayout, cfg, bodies, contacts,
                    goal_contact, wall_contact, tick=step_cuda.step_fused)
 
 
+def physics_batched(layout: WorldLayout, cfg, bodies, contacts,
+                    force, torque, wake, goal_contact, wall_contact):
+    """:func:`physics` with each engine tick staged: PyTorch ops around the
+    CUDA contact-solve kernel (``world.step_batched``); on CPU tensors that
+    entry point runs the plain solve."""
+    return physics(layout, cfg, bodies, contacts, force, torque, wake,
+                   goal_contact, wall_contact, tick=eng.step_batched)
+
+
 def block_world_vertices(layout: WorldLayout, bodies: Bodies):
     """World positions of the dedup'd block vertices [8, 2, E]."""
     origin, q = eng.body_origins(layout.table, bodies)

@@ -1,9 +1,10 @@
 """Where the port's main path spends the card's time.
 
-    python -m gym_puzzles_tpu_torch.profile_step [steps]
+    python -m gym_puzzles_tpu_torch.profile_step [steps] [--env ID] [--backend fused|pallas]
 
-Runs ``make("MultiRobotPuzzle-v0", num_envs=4096)`` on the card (reset,
-10 warm-up steps of random actions), then traces ``steps`` more steps with
+Runs ``make(ID, num_envs=4096, backend=...)`` on the card (default
+MultiRobotPuzzle-v0, the fused backend; reset, 10 warm-up steps of random
+actions), then traces ``steps`` more steps with
 ``torch.profiler`` and prints: the wall time per step (the tracer slows the
 host), the device's busy share of that time (the sum of device-kernel times
 over the wall time), the device kernels launched per step, and the top
@@ -13,8 +14,8 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
-import sys
 import time
 
 import torch
@@ -27,10 +28,10 @@ ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
 
 
-def main(steps: int = 20) -> dict:
+def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
-    env = make(ENV_ID, num_envs=NUM_ENVS)
+    env = make(env_id, num_envs=NUM_ENVS, backend=backend)
     dev = env.device
     state, _obs = env.reset(seed=0)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -57,6 +58,8 @@ def main(steps: int = 20) -> dict:
            for e in kernels[:8]]
     out = dict(
         device=torch.cuda.get_device_name(0),
+        env_id=env_id,
+        backend=backend,
         steps=steps,
         wall_ms_per_step=1e3 * wall_s / steps,
         device_ms_per_step=device_us / 1e3 / steps,
@@ -64,7 +67,8 @@ def main(steps: int = 20) -> dict:
         kernels_per_step=launches / steps,
         top=top,
     )
-    print(f"{steps} traced steps x {NUM_ENVS} envs on {out['device']}: "
+    print(f"{env_id} backend={backend}: {steps} traced steps x {NUM_ENVS} envs on "
+          f"{out['device']}: "
           f"{out['wall_ms_per_step']:.3f} ms/step wall, {out['device_ms_per_step']:.3f} ms/step "
           f"on the device (busy share {out['device_busy_share']:.3f}), "
           f"{out['kernels_per_step']:.1f} kernels/step")
@@ -75,4 +79,9 @@ def main(steps: int = 20) -> dict:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 20)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("steps", nargs="?", type=int, default=20)
+    parser.add_argument("--env", default=ENV_ID)
+    parser.add_argument("--backend", default="fused", choices=("fused", "pallas"))
+    args = parser.parse_args()
+    main(args.steps, args.env, args.backend)

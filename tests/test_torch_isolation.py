@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``gym_puzzles_tpu_torch`` and stepping an
-env on the CPU loads neither JAX, flax nor the JAX package, and without a
-CUDA device ``make`` refuses to pick a device on its own."""
+"""The port stands alone: importing ``gym_puzzles_tpu_torch`` (every module
+that holds a kernel's wrapper too) and stepping each env family on the CPU
+through both backends loads neither JAX, flax nor the JAX package, and
+without a CUDA device ``make`` refuses to pick a device on its own."""
 
 import json
 import subprocess
@@ -20,11 +21,17 @@ PROBE = """
 import json, sys, torch
 torch.set_num_threads(1)
 import gym_puzzles_tpu_torch as gpt
-env = gpt.make("MultiRobotPuzzle-v0", num_envs=4, device="cpu",
-               velocity_iters=4, position_iters=2)
-state, obs = env.reset(seed=0)
-state, obs, reward, done, info = env.step(state, torch.zeros(4, env.cfg.act_dim))
-assert obs.shape == (4, env.cfg.obs_dim) and bool(torch.isfinite(obs).all())
+import gym_puzzles_tpu_torch.convert, gym_puzzles_tpu_torch.profile_step
+import gym_puzzles_tpu_torch.engine.solver_cuda, gym_puzzles_tpu_torch.engine.step_cuda
+import gym_puzzles_tpu_torch.engine._cuda_build
+for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),
+                        ("MultiRobotPuzzle-v2", "pallas"), ("MultiRobotPuzzleHeavy-v2", "fused"),
+                        ("MultiRobotPuzzle-v3", "fused")):
+    env = gpt.make(env_id, num_envs=4, device="cpu", backend=backend,
+                   velocity_iters=4, position_iters=2)
+    state, obs = env.reset(seed=0)
+    state, obs, reward, done, info = env.step(state, torch.zeros(4, env.cfg.act_dim))
+    assert obs.shape == (4, env.cfg.obs_dim) and bool(torch.isfinite(obs).all())
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -45,9 +52,23 @@ def test_make_without_cuda_raises(monkeypatch):
         gpt.make("MultiRobotPuzzle-v0", num_envs=4)
 
 
+def test_all_ids_and_backends_build():
+    for env_id in gpt.ENV_IDS:
+        for backend in ("fused", "pallas"):
+            env = gpt.make(env_id, num_envs=4, device="cpu", backend=backend)
+            assert env.backend == backend and env.cfg.env_id == env_id
+
+
 def test_unported_ids_and_backends_raise():
-    for env_id in ("MultiRobotPuzzle-v2", "MultiRobotPuzzleHeavy-v2", "MultiRobotPuzzle-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gpt.make(env_id, num_envs=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gpt.make("MultiRobotPuzzle-v0", num_envs=4, device="cpu", backend="pallas")
+    """An id or a backend name that the port does not have raises."""
+    with pytest.raises(KeyError, match="unknown env id"):
+        gpt.make("MultiRobotPuzzle-v1", num_envs=4, device="cpu")
+    with pytest.raises(ValueError, match="backend must be one of"):
+        gpt.make("MultiRobotPuzzle-v0", num_envs=4, device="cpu", backend="xla")
+
+
+def test_chip_smoke_imports_no_jax():
+    source = (ROOT / "chip_smoke.py").read_text()
+    for name in ("jax", "flax", "gym_puzzles_tpu"):
+        assert f"import {name}\n" not in source and f"import {name} " not in source
+        assert f"from {name} " not in source and f"from {name}." not in source

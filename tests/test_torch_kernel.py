@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from gym_puzzles_tpu_torch.api.registry import _logic
+from gym_puzzles_tpu_torch.engine import _cuda_build
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import step_cuda
 from gym_puzzles_tpu_torch.engine import types
@@ -78,9 +79,9 @@ def test_cpu_entry_point_is_plain_step():
 def test_oversize_table_refused():
     box = shp.box_vertices(0.5, 0.5)
     specs = [types.BodySpec(fixtures=[types.FixtureSpec(vertices=box, density=1.0)])
-             for _ in range(step_cuda.MAX_B + 1)]
+             for _ in range(_cuda_build.MAX_B + 1)]
     with pytest.raises(ValueError, match="at most"):
-        step_cuda.world_struct(types.build_shape_table(specs))
+        _cuda_build.world_struct(types.build_shape_table(specs))
 
 
 @pytest.fixture(scope="module")
@@ -91,14 +92,14 @@ def host_kernel(tmp_path_factory):
         pytest.skip("no g++ to build the kernel source as host C++")
     out = tmp_path_factory.mktemp("host_kernel") / "step_fused_host.so"
     subprocess.run([gxx, "-x", "c++", "-O2", "-shared", "-fPIC", "-ffp-contract=off",
-                    "-o", str(out), str(step_cuda.CSRC / "step_fused.cu")],
+                    "-o", str(out), str(_cuda_build.CSRC / "step_fused.cu")],
                    check=True, capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(out))
     vp = ctypes.c_void_p
     lib.gpt_step_fused_host.argtypes = [vp] * 7 + [ctypes.c_int, ctypes.c_float,
                                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.gpt_step_fused_host.restype = None
-    assert lib.gpt_world_bytes() == ctypes.sizeof(step_cuda.World)
+    assert lib.gpt_world_bytes() == ctypes.sizeof(_cuda_build.World)
     return lib
 
 
@@ -108,7 +109,7 @@ def host_tick(lib, incremental, table, bodies, contacts, force, torque, wake, dt
     bfo = torch.full((8 * B, E), float("nan"))
     pfo = torch.full((17 * P, E), float("nan"))
     pio = torch.full((2 * P, E), -7, dtype=torch.int32)
-    w = step_cuda.world_struct(table)
+    w = _cuda_build.world_struct(table)
     lib.gpt_step_fused_host(ctypes.byref(w), bf.data_ptr(), pf.data_ptr(), pid.data_ptr(),
                             bfo.data_ptr(), pfo.data_ptr(), pio.data_ptr(), E, dt, vi, pi,
                             int(incremental))

@@ -88,3 +88,93 @@ def maxdiff(j, t):
     return float(np.abs(np.asarray(j, np.float64) - t.numpy()).max())
 
 
+# --------------------------------------------------------------------------
+# env-level drives: the JAX ``VectorEnv(backend='xla')`` beside the port's
+# ``VectorEnv`` on the CPU, at 8/4 solver iterations
+# --------------------------------------------------------------------------
+
+ITERS = dict(velocity_iters=8, position_iters=4)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_env(env_id, E, **kw):
+    from gym_puzzles_tpu.api import registry as jreg
+
+    return jreg.make(env_id, num_envs=E, auto_reset=False, **ITERS, **kw)
+
+
+def jax_spawns(env, seed):
+    """(EnvState with trailing env axis, obs [obs_dim, E]) from JAX reset_fast."""
+    keys = jax.random.split(jax.random.key(seed), env.num_envs)
+    return jax.jit(jax.vmap(env.logic.reset_fast, in_axes=(0, None), out_axes=-1))(
+        keys, env.logic.default_params())
+
+
+def jax_env_step(env, state, action):
+    from gym_puzzles_tpu.api.vector import VectorState
+
+    vs = VectorState(env=state, key=jax.random.split(jax.random.key(0), env.num_envs))
+    vs, obs, reward, done, info = env.step(vs, jnp.asarray(action))
+    return vs.env, np.asarray(obs), np.asarray(reward), np.asarray(done), info
+
+
+def compare_drive(env_id, E, steps, seed, backend="fused", obs_tol=(1e-4, 1e-4),
+                  reward_atol=1e-3, return_tol=(1e-4, 1e-2), need_contact=True, **kw):
+    """Spawn in the JAX env, carry the states across, and step both envs with
+    the same numpy actions.  While an env has had no contact: obs within
+    ``obs_tol`` (rtol, atol) and reward within ``reward_atol``; done and
+    done_status equal at every step.  Past the first contact f32 chaos can
+    make states diverge (docs/PARITY.md:94-99), so the returns over the
+    drive (``return_tol``) and the terminations are what is compared."""
+    from gym_puzzles_tpu_torch.api import registry as treg
+
+    jenv = jax_env(env_id, E, **kw)
+    tenv = treg.make(env_id, num_envs=E, auto_reset=False, device="cpu", backend=backend,
+                     **ITERS, **kw)
+    jstate, _ = jax_spawns(jenv, seed)
+    tstate = convert.state_from_numpy(np_tree(jstate))
+    rng = np.random.RandomState(seed)
+    contacted = np.zeros(E, bool)
+    ret_j, ret_t = np.zeros(E), np.zeros(E)
+    for _ in range(steps):
+        a = rng.uniform(-1, 1, (E, tenv.cfg.act_dim)).astype(np.float32)
+        jstate, jobs, jrew, jdone, jinfo = jax_env_step(jenv, jstate, a)
+        tstate, tobs, trew, tdone, tinfo = tenv.step(tstate, torch.as_tensor(a))
+        contacted |= np.asarray(jstate.contacts.touching).any(axis=0)
+        contacted |= tstate.contacts.touching.any(dim=0).numpy()
+        free = ~contacted
+        np.testing.assert_allclose(tobs.numpy()[free], jobs[free],
+                                   rtol=obs_tol[0], atol=obs_tol[1])
+        np.testing.assert_allclose(trew.numpy()[free], jrew[free], atol=reward_atol)
+        np.testing.assert_array_equal(tdone.numpy(), jdone)
+        np.testing.assert_array_equal(tinfo["done_status"].numpy(),
+                                      np.asarray(jinfo["done_status"]))
+        ret_j += jrew
+        ret_t += trew.numpy()
+    assert not contacted.all(), "the drive should keep some envs free of contact"
+    if need_contact:
+        assert contacted.any(), "the drive should bring some envs into contact"
+    np.testing.assert_allclose(ret_t, ret_j, rtol=return_tol[0], atol=return_tol[1])
+    return tenv, tstate
+
+
+def leaves(x):
+    """The array leaves of a (tuple of) JAX or port dataclass tree(s), as
+    numpy arrays, in field order."""
+    if dataclasses.is_dataclass(x):
+        return [leaf for f in dataclasses.fields(x) for leaf in leaves(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [leaf for item in x for leaf in leaves(item)]
+    return [x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)]
+
+
+def assert_trees_close(jax_out, torch_out, rtol=1e-5, atol=1e-6):
+    """A JAX result against the port's, leaf by leaf: exact for bool and int
+    leaves, within (rtol, atol) for floats."""
+    js, ts = leaves(jax_out), leaves(torch_out)
+    assert len(js) == len(ts)
+    for j, t in zip(js, ts):
+        if j.dtype.kind in "bi":
+            np.testing.assert_array_equal(t, j)
+        else:
+            np.testing.assert_allclose(t, j, rtol=rtol, atol=atol)
