@@ -6,14 +6,17 @@
 Phases (each raises on failure; the script exits non-zero on any):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build both kernels from ``gym_puzzles_tpu_torch/csrc`` (one nvcc each,
-   started together, sm_90a) and print the build time and ptxas' register /
-   spill report;
+   started together, sm_90a) and print the build time and, for every
+   instantiation (size class) of each, ptxas' registers, stack frame and
+   spills;
 3. hold the fused tick kernel against its plain PyTorch version
    (``world.step``) on the card: the injected 3-body push world (10 ticks at
    8/4), v0 random spawns at 4096 envs (1 tick at 180/60), 1000 envs (the
    ragged edge), 4096 spawns each of Heavy-v0, v2 and v3 (the shapes the
    main paths give it), and the exact against the incremental position-pass
-   trig on a 12-tick v0 contact drive;
+   trig on a 12-tick v0 contact drive; and, once phase 5 has run it, on the
+   state the 200-step v0 fused drive ends with (resting contacts, sleeping
+   bodies), with the kernel's time on that state;
 4. hold the contact-solve kernel against its plain version
    (``solver_cuda.solve_contacts_plain``): the push world through the staged
    tick, the constraints of 4096 v0 spawns, 1000 v0 spawns (ragged) and 4096
@@ -23,8 +26,9 @@ Phases (each raises on failure; the script exits non-zero on any):
    through ``make(...)`` with the default device: v0 fused, v0 and v2 staged
    (``backend='pallas'``), v2 and v3 fused; every output finite; exactly
    200 x frameskip launches of the path's kernel and none of the other;
-6. both kernels' times per variant, and one JSON line describing each ported
-   kernel (times, bound, launches);
+6. both kernels' times per variant, beside the mean and warp-max live pairs
+   per env of the inputs timed (the sweeps visit only those), and one JSON
+   line describing each ported kernel (times, bound, launches);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; imports nothing of JAX or the JAX package.
@@ -43,6 +47,7 @@ import torch
 
 from gym_puzzles_tpu_torch import make
 from gym_puzzles_tpu_torch.api.registry import _logic
+from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
 
@@ -78,10 +83,11 @@ TRIG_LIMITS = dict(pos=4.8e-6, angle=3.3e-5, impulse=1e-6)
 SPAWN_TRIG_LIMITS = dict(pos=2e-5, angle=3.3e-5, vel=0.0, impulse=0.0)
 # A kernel against its plain version on one solve of random spawns, largest
 # difference over all envs, those in contact included.  Measured on an H100
-# at 4096 envs: positions up to 1.3e-5 m; angles up to 1.8e-4 rad (v2, whose
-# wheel bodies have little inertia) and 6.2e-6 elsewhere; normal impulses, which
-# the deep overlaps of a spawn drive high, up to 8.5e-3 N s.  About ten times
-# each.  ``impulse_scale``, the largest impulse, is printed beside them.
+# at 4096 envs: positions up to 1.8e-5 m; angles up to 2.5e-4 rad (v2, whose
+# wheel bodies have little inertia) and 7.2e-6 elsewhere; normal impulses, which
+# the deep overlaps of a spawn drive high, up to 8.5e-3 N s.  The limits are
+# five to twelve times these.  ``impulse_scale``, the largest impulse, is
+# printed beside them.
 SPAWN_LIMITS = dict(no_contact_max=1e-4, median=1e-3, max=1e-4, angle=2e-3, impulse=0.1)
 # position_solved compares a min separation with -3 * linear_slop, so a
 # last-bit difference can flip it: at most this share of the envs in contact
@@ -100,64 +106,87 @@ def maxdiff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def narrowphase_ops(table) -> int:
-    """SAT + clip operations of one narrow-phase pass over every pair."""
-    ops = 0
+def narrowphase_ops(table) -> list[int]:
+    """SAT + clip operations of one narrow-phase visit, per pair."""
+    ops = []
     for p in range(table.num_pairs):
         ca = int(table.fix_count[table.pair_fix_a[p]])
         cb = int(table.fix_count[table.pair_fix_b[p]])
-        ops += 28 + ca * (20 + 4 * cb) + cb * (20 + 4 * ca) + 5 * max(ca, cb) + 120
+        ops.append(28 + ca * (20 + 4 * cb) + cb * (20 + 4 * ca) + 5 * max(ca, cb) + 120)
     return ops
 
 
-def sweep_ops(table, per_pair, vel_iters, pos_iters) -> int:
-    """Float32 operations of the velocity and position sweeps over the pairs
-    in contact: ``per_pair[p]`` envs have pair ``p`` in contact."""
+def sweep_ops(table, vel_rows, pos_rows, vel_iters, pos_iters) -> int:
+    """Float32 operations of the velocity and position sweeps over the live
+    rows: ``vel_rows[p]`` / ``pos_rows[p]`` envs visit pair ``p`` in a
+    velocity / position sweep."""
     dyn = ~table.is_static
     ops = 0
-    for p, n in enumerate(per_pair):
+    for p, (nv, np_) in enumerate(zip(vel_rows, pos_rows)):
         dd = bool(dyn[table.pair_body_a[p]] and dyn[table.pair_body_b[p]])
-        ops += n * (vel_iters * OPS_VEL_PAIR[dd] + pos_iters * OPS_POS_PAIR[dd])
+        ops += nv * vel_iters * OPS_VEL_PAIR[dd] + np_ * pos_iters * OPS_POS_PAIR[dd]
     return ops
 
 
-def bound(nbytes, ops, pairs_in_contact) -> dict:
+def bound(nbytes, ops, live_rows) -> dict:
     """The larger of bytes at the HBM rate and operations at the float32
     rate, in ms, with what bounds it and its parts."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return dict(ms=1e3 * max(t_bytes, t_ops), by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops, pairs_in_contact=pairs_in_contact,
+                bytes=nbytes, ops=ops, live_rows=live_rows,
                 bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops)
 
 
-def kernel_bound(table, touching, vel_iters, pos_iters) -> dict:
-    """Least time the card could take for one fused tick of these envs: bytes
-    each read or written once at the HBM rate, against the float32 operations
-    these inputs need at the float32 rate (sweeps counted over the pairs in
-    contact only)."""
+def kernel_bound(table, bf, live, vel_iters, pos_iters) -> dict:
+    """Least time the card could take for one fused tick of these envs: the
+    bytes it must move at the HBM rate, against the float32 operations it
+    must do at the float32 rate, counted from this run's inputs (``bf`` the
+    body input planes, ``live`` [P, E] the pairs with manifold points and an
+    active body).  A pair whose two bodies are dynamic and asleep keeps its
+    stored manifold: only there are its 10 manifold planes read and the
+    narrow phase not needed.  Constraint setup and the sweeps run over the
+    live pairs, the position sweeps' per-body cos/sin only in envs with
+    one."""
     B, P = table.num_bodies, table.num_pairs
-    E = touching.shape[-1]
-    nbytes = E * 4 * ((12 + 8) * B + (15 + 17) * P + 2 * 2 * P)
+    E = live.shape[-1]
+    planes = bf.view(len(step_cuda.B_IN), B, E)
+    static = torch.as_tensor(table.is_static, device=bf.device)[:, None]
+    aw = ((planes[step_cuda.B_IN.index("awake")] > 0.5)
+          | (planes[step_cuda.B_IN.index("wake")] > 0.5) | static)
+    pair_body = lambda x: torch.as_tensor(x, dtype=torch.long, device=bf.device)
+    # [P, E]: pairs whose new manifold the narrow phase decides
+    upd = aw[pair_body(table.pair_body_a)] | aw[pair_body(table.pair_body_b)]
+    # body planes 12 in, 8 out; per pair touch, 2 ids, 4 impulses in, 17 + 2 out
+    words = E * ((12 + 8) * B + (7 + 19) * P) + 10 * int((~upd).sum())
     n_dyn = int((~table.is_static).sum())
-    per_pair = touching.sum(dim=-1).tolist()  # envs in contact, per pair
-    ops = E * (narrowphase_ops(table) + OPS_SETUP_PAIR * P + OPS_BODY * B
-               + pos_iters * OPS_POS_SWEEP_BODY * n_dyn)
-    ops += sweep_ops(table, per_pair, vel_iters, pos_iters)
-    return bound(nbytes, ops, int(sum(per_pair)))
+    per_pair = live.sum(dim=-1).tolist()
+    ops = (E * OPS_BODY * B
+           + sum(n * c for n, c in zip(narrowphase_ops(table), upd.sum(dim=-1).tolist()))
+           + OPS_SETUP_PAIR * sum(per_pair)
+           + pos_iters * OPS_POS_SWEEP_BODY * n_dyn * int(live.any(dim=0).sum()))
+    ops += sweep_ops(table, per_pair, per_pair, vel_iters, pos_iters)
+    return bound(4 * words, ops, int(sum(per_pair)))
 
 
-def solve_bound(table, vc, vel_iters, pos_iters) -> dict:
-    """The same for one launch of the contact-solve kernel: its (43 P + 14 B)
-    float32 planes per env, each read or written once, against the sweeps
-    over the pairs it solves."""
+def solve_bound(table, vc, man, vel_iters, pos_iters) -> dict:
+    """The same for one launch of the contact-solve kernel, counted from its
+    inputs: per env the 14 B body words, per pair the ``solve`` and ``link``
+    flags and 4 impulses in and out, per solved pair its two counts, and the
+    row planes of the live rows only (22 words for a velocity row, 9 for a
+    position row); the sweeps over those rows, the position sweeps' per-body
+    cos/sin only in envs with a position row."""
     B, P = table.num_bodies, table.num_pairs
     E = vc.k11.shape[-1]
-    nbytes = E * 4 * (43 * P + 14 * B)
+    vel = vc.solve & (vc.count > 0)
+    pos = vc.solve & (man.count > 0)
+    words = (E * (10 * P + 14 * B) + 2 * int(vc.solve.sum())
+             + 22 * int(vel.sum()) + 9 * int(pos.sum()))
     n_dyn = int((~table.is_static).sum())
-    per_pair = (vc.solve & (vc.count > 0)).sum(dim=-1).tolist()
-    ops = E * (OPS_SOLVE_BODY * B + pos_iters * OPS_POS_SWEEP_BODY * n_dyn)
-    ops += sweep_ops(table, per_pair, vel_iters, pos_iters)
-    return bound(nbytes, ops, int(sum(per_pair)))
+    ops = (E * OPS_SOLVE_BODY * B
+           + pos_iters * OPS_POS_SWEEP_BODY * n_dyn * int(pos.any(dim=0).sum()))
+    ops += sweep_ops(table, vel.sum(dim=-1).tolist(), pos.sum(dim=-1).tolist(), vel_iters,
+                     pos_iters)
+    return bound(4 * words, ops, int(vel.sum()))
 
 
 def ticks(table, bodies, contacts, n, vi, pi, tick, control):
@@ -398,7 +427,8 @@ def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STE
     """``steps`` env steps of random actions through ``make`` at 4096 envs
     and 180/60, with the launch counts set to 0 just before and read just
     after: the path's kernel must have run steps x frameskip times and the
-    other kernel not at all."""
+    other kernel not at all.  Returns the launches, the rate, and the env and
+    its state at the end."""
     env = make(env_id, num_envs=NUM_ENVS, backend=backend)
     if env.device.type != "cuda":
         raise AssertionError(f"make() defaulted to {env.device}")
@@ -438,7 +468,51 @@ def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STE
     rate = steps * NUM_ENVS / elapsed_s
     print(f"  {name}: {steps} steps x {NUM_ENVS} envs in {elapsed_s:.3f} s: "
           f"{rate:,.0f} env-steps/s; launches {launches}  [{card_line}]", flush=True)
-    return dict(launches=launches[mine], env_steps_per_s=rate)
+    return dict(launches=launches[mine], env_steps_per_s=rate, env=env, state=state)
+
+
+def live_line(live, kernel) -> str:
+    """The mean and warp-max live pairs per env of ``live`` [P, E], at the
+    envs per warp of ``kernel``'s build."""
+    st = cb.live_pair_stats(live, kernel.envs_per_warp())
+    return (f"live pairs per env mean {st['mean']:.3f}, warp max {st['warp_max']:.3f} "
+            f"({st['envs_per_warp']} envs per warp), env max {st['max']:.0f}")
+
+
+def check_end_of_drive(dev, env, state, card_line) -> dict:
+    """Kernel A against ``world.step`` on the state a 200-step v0 fused drive
+    ends with: one tick at 180/60 as the ticks after a step's first run it
+    (no force, no control wake), so resting contacts and sleeping bodies
+    stay as the drive left them; every env held to ``SPAWN_LIMITS``, awake
+    flags equal.  Prints kernel A's time on that tick."""
+    table = env.logic.layout.table
+    bodies, contacts = state.bodies, state.contacts
+    zf = torch.zeros_like(bodies.vel)
+    zt = torch.zeros_like(bodies.omega)
+    no_wake = torch.zeros_like(bodies.awake)
+    args = (table, bodies, contacts, zf, zt, no_wake, DT, VI, PI)
+    bk, ck, _ = step_cuda.step_fused(*args, incremental_trig=False)
+    bp, cp, _ = world.step(*args)
+    vc, man = world.before_solve(*args[:7])[0][:2]
+    dyn = torch.as_tensor(~table.is_static, device=dev)[:, None]
+    n_asleep = int((dyn & ~bodies.awake).sum())
+    n_carried = int(((man.count > 0) & ~vc.solve).any(dim=0).sum())
+    name = (f"fused, {env.cfg.env_id} state ending the {MAIN_STEPS}-step fused drive, "
+            f"1 tick {VI}/{PI} ({n_asleep} dynamic bodies asleep; {n_carried} envs hold "
+            f"unsolved manifolds)")
+    out = spawn_diffs(name, (bk.pos, bk.angle, ck.normal_impulse),
+                      (bp.pos, bp.angle, cp.normal_impulse), cp.touching.any(dim=0))
+    if not torch.equal(bk.awake, bp.awake):
+        raise AssertionError(f"{name}: awake flags differ")
+    if not all(bool(torch.isfinite(x).all()) for x in (bk.pos, bk.vel, ck.normal_impulse)):
+        raise AssertionError(f"{name}: kernel output not finite")
+    planes = step_cuda.pack(bodies, contacts, zf, zt, no_wake)
+    ms = cuda_ms(lambda: step_cuda.launch(table, *planes, DT, VI, PI), 10)
+    live = vc.solve & (vc.count > 0)
+    print(f"  step_fused on that state: {ms:.3f} ms per launch; "
+          f"{live_line(live, step_cuda.KERNEL)}; {NUM_ENVS} envs {VI}/{PI}  [{card_line}]",
+          flush=True)
+    return dict(out, ms=ms)
 
 
 def time_kernels(dev, env_id, card_line) -> dict:
@@ -447,24 +521,29 @@ def time_kernels(dev, env_id, card_line) -> dict:
     table, contacts, bodies, force, torque, wake = spawn_tick(dev, NUM_ENVS, 0, env_id)
     bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
     fused = lambda: step_cuda.launch(table, bf, pf, pi, DT, VI, PI)
-    _bfo, pfo, _pio = fused()
+    fused()
     fused_ms = cuda_ms(fused, 10)
-    touching = pfo.view(len(step_cuda.P_OUT), table.num_pairs, NUM_ENVS)[
-        step_cuda.P_OUT.index("touch")] > 0.5
-    fused_bound = kernel_bound(table, touching, VI, PI)
+    vc = world.before_solve(table, bodies, contacts, force, torque, wake, DT)[0][0]
+    live = vc.solve & (vc.count > 0)  # the rows the kernel's sweeps visit
+    fused_bound = kernel_bound(table, bf, live, VI, PI)
+    fused_live = live_line(live, step_cuda.KERNEL)
 
     table, solve_args = spawn_solve_args(dev, NUM_ENVS, 0, env_id)
     planes = solver_cuda.pack(*solve_args)
     solve = lambda: solver_cuda.launch(table, *planes, DT, VI, PI)
     solve()
     solve_ms = cuda_ms(solve, 10)
-    sbound = solve_bound(table, solve_args[0], VI, PI)
-    for name, ms, b in (("step_fused", fused_ms, fused_bound),
-                        ("solve_contacts", solve_ms, sbound)):
-        print(f"  {env_id} (B={table.num_bodies} P={table.num_pairs}) {name}: {ms:.3f} ms per "
-              f"launch; bound {b['ms']:.4f} ms ({b['by']}): {b['bytes']} bytes = "
+    vc, man = solve_args[:2]
+    sbound = solve_bound(table, vc, man, VI, PI)
+    solve_live = (f"velocity {live_line(vc.solve & (vc.count > 0), solver_cuda.KERNEL)}; "
+                  f"position {live_line(vc.solve & (man.count > 0), solver_cuda.KERNEL)}")
+    for name, ms, b, live in (("step_fused", fused_ms, fused_bound, fused_live),
+                              ("solve_contacts", solve_ms, sbound, solve_live)):
+        print(f"  {env_id} (B={table.num_bodies} P={table.num_pairs}, size class "
+              f"{cb.size_class(table)}) {name}: {ms:.3f} ms per launch; {live}; "
+              f"bound {b['ms']:.4f} ms ({b['by']}): {b['bytes']} bytes = "
               f"{b['bytes_ms']:.4f} ms, {b['ops']} f32 ops = {b['ops_ms']:.4f} ms, "
-              f"{b['pairs_in_contact']} pairs in contact; {NUM_ENVS} envs {VI}/{PI}  "
+              f"{b['live_rows']} live rows; {NUM_ENVS} envs {VI}/{PI}  "
               f"[{card_line}]", flush=True)
     return dict(fused_ms=fused_ms, fused_bound=fused_bound, solve_ms=solve_ms,
                 solve_bound=sbound)
@@ -489,11 +568,16 @@ def main() -> int:
         builds = [f.result() for f in builds]
     print(f"  built {', '.join(path.name for path, _ in builds)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for _path, log in builds:
-        for line in log.splitlines():
-            if ("registers" in line or "stack frame" in line or "spill" in line
-                    or "Compiling entry" in line):
-                print(f"  ptxas: {line.strip()}", flush=True)
+    for m, (_path, log) in zip((step_cuda, solver_cuda), builds):
+        report = cb.ptxas_report(log)
+        if len(report) != len(cb.SIZE_CLASSES):
+            raise AssertionError(f"{m.KERNEL.name}: ptxas reported {len(report)} "
+                                 f"instantiations, expected {len(cb.SIZE_CLASSES)}")
+        for r in report:
+            print(f"  ptxas: {m.KERNEL.name} B<={r['bodies']} P<={r['pairs']}: "
+                  f"{r['registers']} registers, {r['stack']} bytes stack frame, "
+                  f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads; "
+                  f"{m.KERNEL.envs_per_warp()} envs per warp", flush=True)
 
     print("== 3. fused tick kernel against plain on the card", flush=True)
     check_push_world(dev)
@@ -515,6 +599,9 @@ def main() -> int:
 
     print("== 5. main paths", flush=True)
     fused_run = run_main_path(dev, card_line)
+    print("== 3 (end). fused tick kernel against plain on the state the v0 fused drive "
+          "ends with", flush=True)
+    check_end_of_drive(dev, fused_run["env"], fused_run["state"], card_line)
     staged_run = run_main_path(dev, card_line, ENV_ID, "pallas")
     run_main_path(dev, card_line, "MultiRobotPuzzle-v2", "pallas")
     run_main_path(dev, card_line, "MultiRobotPuzzle-v2", "fused")

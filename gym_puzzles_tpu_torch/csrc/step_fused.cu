@@ -9,29 +9,35 @@
 //   3. manifold select, touch begin/end, contact-id impulse matching;
 //   4. island labels (max(1, n_dyn) min-propagation rounds) and wake
 //      propagation;
-//   5. damped velocity integration and constraint setup;
+//   5. damped velocity integration and constraint setup of the live pairs;
 //   6. warm start, velocity sweeps (friction, then normal with the 2-point
 //      block solve);
 //   7. position integration, position sweeps with the per-island early exit;
 //   8. sleep bookkeeping and storing the impulses.
 //
-// Design: one thread per env, reading and writing the JAX kernel's plane
-// layout [planes, E] (step_pallas.py:81-95), so the 32 threads of a warp
-// touch 32 neighbouring floats of each plane.  The static world (geometry,
-// mass, pair list) sits in __constant__ memory, read uniformly by the warp.
-// dt and the iteration counts are runtime arguments, so one build serves
-// every variant up to the GPT_MAX_* sizes.
+// Layout: one thread per env, reading and writing the JAX kernel's plane
+// layout [planes, E] (step_pallas.py:81-95).  The static world (geometry,
+// mass, pair list) sits in __constant__ memory; dt and the iteration counts
+// are runtime arguments.
 //
 // What bounds it: not bytes.  A v0 tick moves ~455 words in and ~455 out per
 // env (~15 MB at 4096 envs, ~4.5 us at 3.35 TB/s), but runs 180 velocity and
-// 60 position sweeps over 21 pairs: a few hundred thousand dependent float32
-// operations per env, sequential within the env.  The per-env working set
-// (~1,000 floats of body and constraint state) does not fit in registers, so
-// it lives in local memory (L1-cached), and with 4096 envs the card holds
-// only ~one warp per SM: the kernel is latency-bound.  Small blocks of 32
-// threads spread the 128 warps over the 132 SMs; making it fast (registers
-// per body via templates, several envs' state in shared memory, more envs in
-// flight) is later work.
+// 60 position sweeps: chains of dependent float32 operations, sequential
+// within the env (Gauss-Seidel: the order is the result).  The design:
+// * the sweeps visit only the env's live pairs (manifold points and an
+//   active body, which here is the same as an effective count > 0),
+//   compacted in table order into rows that carry the constants the sweeps
+//   read (tick.cuh); the narrow phase and the setup still visit every pair,
+//   uniformly across the warp;
+// * each visit holds its two bodies in registers (one load, one store);
+// * the per-env arrays are sized by the world's size class (templated on
+//   the body and pair ceilings), not by the largest world;
+// * a warp runs GPT_ENVS_PER_WARP envs (tick.cuh), so every warp of 4096
+//   envs runs at once.
+// What bounds it now is the latency of the most loaded env's chain: the
+// launch lasts as long as the env with the most live pairs, about 0.08-0.09
+// ms per live pair of that env at 180/60, plus 0.09 ms (v0) to 0.19 ms (v2)
+// of narrow phase, setup and planes (H100; PERF.md).
 //
 // Floating point: no fast-math; cosf/sinf/sqrtf.  nvcc contracts a*b+c into
 // FMA by default, so results differ from the plain PyTorch version (which
@@ -214,8 +220,10 @@ __device__ __forceinline__ Manifold collide(const World& W, int p, const float* 
   return m;
 }
 
+
 // The whole tick of env ``e``: plain C++ on one thread's registers and
-// local memory.
+// local memory, with per-env arrays sized for MB bodies and MP pairs.
+template <int MB, int MP>
 __device__ __forceinline__ void tick_env(const World& W, int e, const float* __restrict__ bf,
                                          const float* __restrict__ pf,
                                          const int* __restrict__ pi, float* __restrict__ bfo,
@@ -229,13 +237,17 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
 #define PIN(plane, p) pf[((plane) * P + (p)) * sE + e]
 #define POUT(plane, p) pfo[((plane) * P + (p)) * sE + e]
 
-  BodyState s;
-  PairState c;
-  float sl[GPT_MAX_B];
-  bool aw[GPT_MAX_B], act[GPT_MAX_B];
-  float qc[GPT_MAX_B], qs[GPT_MAX_B], ox[GPT_MAX_B], oy[GPT_MAX_B];
-  int label[GPT_MAX_B];
-  bool touch[GPT_MAX_P];
+  BodyState<MB> s;
+  float sl[MB];
+  bool aw[MB], act[MB];
+  float qc[MB], qs[MB], ox[MB], oy[MB];
+  int label[MB];
+  uint64_t touch = 0;  // bit p: pair p touches
+  // Rows of the live pairs, row k the k-th in table order.  Until the setup
+  // they hold the candidates (pairs with manifold points): manifold in pr,
+  // matched impulses in vr.
+  VelRow vr[MP];
+  PosRow pr[MP];
 
   // ---- 1. read state; control wakes ---------------------------------------
   for (int b = 0; b < B; ++b) {
@@ -255,6 +267,9 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
   }
 
   // ---- 2-3. narrow phase, manifold select, touch events, matching --------
+  // Every output plane of a pair is written here; the impulses of the live
+  // slots are written again after the solve.
+  int n_cand = 0;
   for (int p = 0; p < P; ++p) {
     const int a = W.ia[p], b = W.ib[p];
     const Manifold m = collide(W, p, ox, oy, qc, qs);
@@ -264,46 +279,68 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
     const int old_id0 = pi[(2 * p) * sE + e], old_id1 = pi[(2 * p + 1) * sE + e];
     const float old_n[2] = {PIN(PI_NI0, p), PIN(PI_NI1, p)};
     const float old_t[2] = {PIN(PI_TI0, p), PIN(PI_TI1, p)};
+    bool flip, t;
+    float lnx, lny, lpx, lpy, mpx[2], mpy[2], ni[2], ti[2];
+    int mcnt;
     if (upd) {
-      c.flip[p] = m.flip;
-      c.lnx[p] = m.lnx; c.lny[p] = m.lny; c.lpx[p] = m.lpx; c.lpy[p] = m.lpy;
-      for (int j = 0; j < 2; ++j) { c.mpx[p][j] = m.mpx[j]; c.mpy[p][j] = m.mpy[j]; }
-      c.mcnt[p] = m.cnt;
-      touch[p] = m.cnt > 0;
+      flip = m.flip;
+      lnx = m.lnx; lny = m.lny; lpx = m.lpx; lpy = m.lpy;
+      for (int j = 0; j < 2; ++j) { mpx[j] = m.mpx[j]; mpy[j] = m.mpy[j]; }
+      mcnt = m.cnt;
+      t = m.cnt > 0;
       pio[(2 * p) * sE + e] = m.ids[0];
       pio[(2 * p + 1) * sE + e] = m.ids[1];
       for (int j = 0; j < 2; ++j) {  // b2Contact::Update impulse matching
         const int nid = m.ids[j];
         const bool hit0 = nid == old_id0 && nid >= 0 && old_id0 >= 0;
         const bool hit1 = nid == old_id1 && nid >= 0 && old_id1 >= 0;
-        c.ni[p][j] = hit0 ? old_n[0] : (hit1 ? old_n[1] : 0.0f);
-        c.ti[p][j] = hit0 ? old_t[0] : (hit1 ? old_t[1] : 0.0f);
+        ni[j] = hit0 ? old_n[0] : (hit1 ? old_n[1] : 0.0f);
+        ti[j] = hit0 ? old_t[0] : (hit1 ? old_t[1] : 0.0f);
       }
     } else {
-      c.flip[p] = PIN(PI_FLIP, p) > 0.5f;
-      c.lnx[p] = PIN(PI_LNX, p); c.lny[p] = PIN(PI_LNY, p);
-      c.lpx[p] = PIN(PI_LPX, p); c.lpy[p] = PIN(PI_LPY, p);
-      c.mpx[p][0] = PIN(PI_MPX0, p); c.mpy[p][0] = PIN(PI_MPY0, p);
-      c.mpx[p][1] = PIN(PI_MPX1, p); c.mpy[p][1] = PIN(PI_MPY1, p);
-      c.mcnt[p] = (int)PIN(PI_MCNT, p);
-      touch[p] = old_touch;
+      flip = PIN(PI_FLIP, p) > 0.5f;
+      lnx = PIN(PI_LNX, p); lny = PIN(PI_LNY, p);
+      lpx = PIN(PI_LPX, p); lpy = PIN(PI_LPY, p);
+      mpx[0] = PIN(PI_MPX0, p); mpy[0] = PIN(PI_MPY0, p);
+      mpx[1] = PIN(PI_MPX1, p); mpy[1] = PIN(PI_MPY1, p);
+      mcnt = (int)PIN(PI_MCNT, p);
+      t = old_touch;
       pio[(2 * p) * sE + e] = old_id0;
       pio[(2 * p + 1) * sE + e] = old_id1;
-      for (int j = 0; j < 2; ++j) { c.ni[p][j] = old_n[j]; c.ti[p][j] = old_t[j]; }
+      for (int j = 0; j < 2; ++j) { ni[j] = old_n[j]; ti[j] = old_t[j]; }
     }
-    POUT(PI_FLIP, p) = c.flip[p] ? 1.0f : 0.0f;
-    POUT(PI_LNX, p) = c.lnx[p];
-    POUT(PI_LNY, p) = c.lny[p];
-    POUT(PI_LPX, p) = c.lpx[p];
-    POUT(PI_LPY, p) = c.lpy[p];
-    POUT(PI_MPX0, p) = c.mpx[p][0];
-    POUT(PI_MPY0, p) = c.mpy[p][0];
-    POUT(PI_MPX1, p) = c.mpx[p][1];
-    POUT(PI_MPY1, p) = c.mpy[p][1];
-    POUT(PI_MCNT, p) = (float)c.mcnt[p];
-    POUT(PI_TOUCH, p) = touch[p] ? 1.0f : 0.0f;
-    POUT(PO_BEGIN, p) = (upd && touch[p] && !old_touch) ? 1.0f : 0.0f;
-    POUT(PO_END, p) = (upd && !touch[p] && old_touch) ? 1.0f : 0.0f;
+    POUT(PI_FLIP, p) = flip ? 1.0f : 0.0f;
+    POUT(PI_LNX, p) = lnx;
+    POUT(PI_LNY, p) = lny;
+    POUT(PI_LPX, p) = lpx;
+    POUT(PI_LPY, p) = lpy;
+    POUT(PI_MPX0, p) = mpx[0];
+    POUT(PI_MPY0, p) = mpy[0];
+    POUT(PI_MPX1, p) = mpx[1];
+    POUT(PI_MPY1, p) = mpy[1];
+    POUT(PI_MCNT, p) = (float)mcnt;
+    POUT(PI_TOUCH, p) = t ? 1.0f : 0.0f;
+    POUT(PO_BEGIN, p) = (upd && t && !old_touch) ? 1.0f : 0.0f;
+    POUT(PO_END, p) = (upd && !t && old_touch) ? 1.0f : 0.0f;
+    POUT(PI_NI0, p) = ni[0];
+    POUT(PI_NI1, p) = ni[1];
+    POUT(PI_TI0, p) = ti[0];
+    POUT(PI_TI1, p) = ti[1];
+    if (t) touch |= (uint64_t)1 << p;
+    if (mcnt > 0) {  // a candidate: live if one of its bodies is active
+      PosRow& r = pr[n_cand];
+      r.p = p;
+      r.flip = flip;
+      r.mcnt = mcnt;
+      r.lnx = lnx; r.lny = lny; r.lpx = lpx; r.lpy = lpy;
+      for (int j = 0; j < 2; ++j) {
+        r.mpx[j] = mpx[j];
+        r.mpy[j] = mpy[j];
+        vr[n_cand].ni[j] = ni[j];
+        vr[n_cand].ti[j] = ti[j];
+      }
+      ++n_cand;
+    }
   }
 
   // ---- 4. islands (min-label propagation) and wake propagation -----------
@@ -312,7 +349,7 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
   for (int r = 0; r < rounds; ++r) {
     for (int k = 0; k < W.n_dd; ++k) {
       const int p = W.dd_pairs[k];
-      if (touch[p]) {
+      if ((touch >> p) & 1) {
         const int a = W.ia[p], b = W.ib[p];
         const int m = min(label[a], label[b]);
         label[a] = m;
@@ -342,22 +379,41 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
     s.vy[b] = (s.vy[b] + dt_im * BIN(BI_FY, b)) * lin_k;
     s.om[b] = (s.om[b] + dt_ii * BIN(BI_TQ, b)) * ang_k;
   }
-  for (int p = 0; p < P; ++p) {  // b2ContactSolver::InitializeVelocityConstraints
+  // b2ContactSolver::InitializeVelocityConstraints for the live pairs: walk
+  // the table (uniform across the warp) with a cursor over this env's
+  // candidates, compacting the live ones to rows 0..n-1 (n <= cursor, so a
+  // row is read before it is overwritten).
+  int n = 0;
+  for (int p = 0, k = 0; p < P; ++p) {
+    if (k >= n_cand || pr[k].p != p) continue;
     const int a = W.ia[p], b = W.ib[p];
-    const bool f = c.flip[p];
-    const int r = f ? b : a, n = f ? a : b;
-    const float nrx = qc[r] * c.lnx[p] - qs[r] * c.lny[p];
-    const float nry = qs[r] * c.lnx[p] + qc[r] * c.lny[p];
-    const float ppx = (qc[r] * c.lpx[p] - qs[r] * c.lpy[p]) + ox[r];
-    const float ppy = (qs[r] * c.lpx[p] + qc[r] * c.lpy[p]) + oy[r];
+    const PosRow m = pr[k];
+    const float ni0[2] = {vr[k].ni[0], vr[k].ni[1]}, ti0[2] = {vr[k].ti[0], vr[k].ti[1]};
+    ++k;
+    // solve = manifold points && an active body; then the effective count is > 0
+    if (!(act[a] || act[b])) continue;
+    VelRow& v = vr[n];
+    PosRow& q = pr[n];
+    q = m;
+    pair_bodies(W, p, q);
+    pos_consts(W, q);
+    q.isl = label[W.rep[p]];
+    pair_bodies(W, p, v);
+    v.fric = W.fric[p];
+    const bool f = m.flip;
+    const int r = f ? b : a, o = f ? a : b;
+    const float nrx = qc[r] * m.lnx - qs[r] * m.lny;
+    const float nry = qs[r] * m.lnx + qc[r] * m.lny;
+    const float ppx = (qc[r] * m.lpx - qs[r] * m.lpy) + ox[r];
+    const float ppy = (qs[r] * m.lpx + qc[r] * m.lpy) + oy[r];
     const float nx = f ? -nrx : nrx, ny = f ? -nry : nry;
     const float tx = ny, ty = -nx;
-    c.nx[p] = nx;
-    c.ny[p] = ny;
+    v.nx = nx;
+    v.ny = ny;
     float rn_a[2], rn_b[2], kn[2];
     for (int j = 0; j < 2; ++j) {
-      const float cx = (qc[n] * c.mpx[p][j] - qs[n] * c.mpy[p][j]) + ox[n];
-      const float cy = (qs[n] * c.mpx[p][j] + qc[n] * c.mpy[p][j]) + oy[n];
+      const float cx = (qc[o] * m.mpx[j] - qs[o] * m.mpy[j]) + ox[o];
+      const float cy = (qs[o] * m.mpx[j] + qc[o] * m.mpy[j]) + oy[o];
       const float d = (cx - ppx) * nrx + (cy - ppy) * nry;
       const float crx = cx + (W.polygon_radius - d) * nrx;
       const float cry = cy + (W.polygon_radius - d) * nry;
@@ -366,59 +422,46 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
       const float wx = 0.5f * (crx + cix), wy = 0.5f * (cry + ciy);
       const float rax = wx - s.px[a], ray = wy - s.py[a];
       const float rbx = wx - s.px[b], rby = wy - s.py[b];
-      c.rax[p][j] = rax; c.ray[p][j] = ray; c.rbx[p][j] = rbx; c.rby[p][j] = rby;
+      v.rax[j] = rax; v.ray[j] = ray; v.rbx[j] = rbx; v.rby[j] = rby;
       rn_a[j] = rax * ny - ray * nx;
       rn_b[j] = rbx * ny - rby * nx;
       kn[j] = W.m_sum[p] + W.inv_i[a] * (rn_a[j] * rn_a[j]) + W.inv_i[b] * (rn_b[j] * rn_b[j]);
-      c.nm[p][j] = kn[j] > 0.0f ? 1.0f / kn[j] : 0.0f;
+      v.nm[j] = kn[j] > 0.0f ? 1.0f / kn[j] : 0.0f;
       const float rt_a = rax * ty - ray * tx, rt_b = rbx * ty - rby * tx;
       const float kt = W.m_sum[p] + W.inv_i[a] * (rt_a * rt_a) + W.inv_i[b] * (rt_b * rt_b);
-      c.tm[p][j] = kt > 0.0f ? 1.0f / kt : 0.0f;
+      v.tm[j] = kt > 0.0f ? 1.0f / kt : 0.0f;
       // relative normal velocity for the restitution bias (statics: v = 0)
       const float dvx = s.vx[b] - s.om[b] * rby - s.vx[a] + s.om[a] * ray;
       const float dvy = s.vy[b] + s.om[b] * rbx - s.vy[a] - s.om[a] * rax;
       const float v_rel = dvx * nx + dvy * ny;
-      c.bias[p][j] = v_rel < -W.velocity_threshold ? -W.rest[p] * v_rel : 0.0f;
+      v.bias[j] = v_rel < -W.velocity_threshold ? -W.rest[p] * v_rel : 0.0f;
+      v.ni[j] = ni0[j];
+      v.ti[j] = ti0[j];
     }
     const float k11 = kn[0], k22 = kn[1];
     const float k12 = W.m_sum[p] + W.inv_i[a] * rn_a[0] * rn_a[1] + W.inv_i[b] * rn_b[0] * rn_b[1];
     const float det = k11 * k22 - k12 * k12;
     const bool cond_ok = k11 * k11 < W.max_condition * det;
-    const int mcnt = c.mcnt[p];
-    const int vcount = (mcnt == 2 && !cond_ok) ? 1 : mcnt;
     const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
-    c.k11[p] = k11; c.k12[p] = k12; c.k22[p] = k22;
-    c.im11[p] = inv_det * k22;
-    c.im12[p] = -inv_det * k12;
-    c.im22[p] = inv_det * k11;
-    c.solve[p] = mcnt > 0 && (act[a] || act[b]);
-    c.cnt[p] = c.solve[p] ? vcount : 0;
+    v.k11 = k11; v.k12 = k12; v.k22 = k22;
+    v.im11 = inv_det * k22;
+    v.im12 = -inv_det * k12;
+    v.im22 = inv_det * k11;
+    v.cnt = (m.mcnt == 2 && !cond_ok) ? 1 : m.mcnt;
+    ++n;
   }
 
-  // matched impulses, for the slots the solve does not store into
-  float mn[GPT_MAX_P][2], mt[GPT_MAX_P][2];
-  for (int p = 0; p < P; ++p)
-    for (int j = 0; j < 2; ++j) { mn[p][j] = c.ni[p][j]; mt[p][j] = c.ti[p][j]; }
-
   // ---- 6. warm start, velocity iterations ---------------------------------
-  warm_start(W, s, c);
-  for (int it = 0; it < vel_iters; ++it) vel_sweep(W, s, c);
+  warm_start(s, vr, n);
+  for (int it = 0; it < vel_iters; ++it) vel_sweep(s, vr, n);
 
   // ---- 7. integrate positions, position iterations -----------------------
   integrate(W, s, act, dt);
-  float stc[GPT_MAX_B], sts[GPT_MAX_B], sox[GPT_MAX_B], soy[GPT_MAX_B];
-  float cc[GPT_MAX_B], cs[GPT_MAX_B], min_sep[GPT_MAX_B];
-  bool done[GPT_MAX_B];
-  for (int b = 0; b < B; ++b) {
-    // static bodies never move: their transforms are the tick-start ones
-    stc[b] = qc[b]; sts[b] = qs[b]; sox[b] = ox[b]; soy[b] = oy[b];
-    done[b] = false;
-  }
-  for (int it = 0; it < pos_iters; ++it) {
-    for (int b = 0; b < B; ++b) min_sep[b] = 0.0f;
-    pos_sweep(W, s, c, label, done, min_sep, stc, sts, sox, soy, cc, cs, incremental != 0);
-    for (int b = 0; b < B; ++b) done[b] = done[b] || (min_sep[b] >= W.pos_done_sep);
-  }
+  // static bodies never move: their rotations are the tick-start ones
+  float cc[MB], cs[MB];
+  bool done[MB];
+  for (int b = 0; b < B; ++b) { cc[b] = qc[b]; cs[b] = qs[b]; }
+  pos_pass(W, s, pr, n, pos_iters, done, cc, cs, incremental != 0);
   if (P == 0)
     for (int b = 0; b < B; ++b) done[b] = true;
 
@@ -447,13 +490,16 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
     BOUT(BO_AWAKE, b) = (aw[b] && !sleeps) ? 1.0f : 0.0f;
     BOUT(BO_SLEEP, b) = sleeps ? 0.0f : sl[b];
   }
-  // store impulses for live solved slots, carry the matched ones otherwise
-  for (int p = 0; p < P; ++p) {
-    const bool live0 = 0 < c.cnt[p], live1 = 1 < c.cnt[p];
-    POUT(PI_NI0, p) = live0 ? c.ni[p][0] : mn[p][0];
-    POUT(PI_NI1, p) = live1 ? c.ni[p][1] : mn[p][1];
-    POUT(PI_TI0, p) = live0 ? c.ti[p][0] : mt[p][0];
-    POUT(PI_TI1, p) = live1 ? c.ti[p][1] : mt[p][1];
+  // the solved impulses of the live slots (the others keep the matched ones)
+  for (int k = 0; k < n; ++k) {
+    const VelRow& v = vr[k];
+    const int p = v.p;
+    POUT(PI_NI0, p) = v.ni[0];
+    POUT(PI_TI0, p) = v.ti[0];
+    if (v.cnt > 1) {
+      POUT(PI_NI1, p) = v.ni[1];
+      POUT(PI_TI1, p) = v.ti[1];
+    }
   }
 #undef BIN
 #undef BOUT
@@ -468,19 +514,31 @@ __device__ __forceinline__ void tick_env(const World& W, int e, const float* __r
 
 __constant__ World c_world;
 
-__global__ void __launch_bounds__(32)
+template <int MB, int MP>
+__global__ void __launch_bounds__(GPT_ENVS_PER_WARP)
 step_fused_kernel(const float* __restrict__ bf, const float* __restrict__ pf,
                   const int* __restrict__ pi, float* __restrict__ bfo,
                   float* __restrict__ pfo, int* __restrict__ pio, int E, float dt,
                   int vel_iters, int pos_iters, int incremental) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int e = blockIdx.x * GPT_ENVS_PER_WARP + threadIdx.x;
   if (e >= E) return;  // ragged edge
-  tick_env(c_world, e, bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters, incremental);
+  // the wrapper picks a size class the table fits; a world beyond it fails
+  // the launch (and the context) rather than overrun the arrays
+  if (c_world.B > MB || c_world.P > MP) __trap();
+  tick_env<MB, MP>(c_world, e, bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters,
+                   incremental);
+}
+
+template <int MB, int MP>
+static void launch(const float* bf, const float* pf, const int* pi, float* bfo, float* pfo,
+                   int* pio, int E, float dt, int vel_iters, int pos_iters, int incremental,
+                   cudaStream_t stream) {
+  const int blocks = (E + GPT_ENVS_PER_WARP - 1) / GPT_ENVS_PER_WARP;
+  step_fused_kernel<MB, MP><<<blocks, GPT_ENVS_PER_WARP, 0, stream>>>(
+      bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters, incremental);
 }
 
 extern "C" {
-
-int gpt_world_bytes(void) { return (int)sizeof(World); }
 
 // Copy a world table into constant memory, ordered on ``stream``.
 int gpt_set_world(const void* world, void* stream) {
@@ -490,15 +548,21 @@ int gpt_set_world(const void* world, void* stream) {
 }
 
 // One tick for E envs.  Planes: bf [12B, E], pf [15P, E], pi [2P, E] in;
-// bfo [8B, E], pfo [17P, E], pio [2P, E] out.  Returns cudaGetLastError().
+// bfo [8B, E], pfo [17P, E], pio [2P, E] out.  ``size_class`` indexes
+// gpt_size_classes().  Returns cudaGetLastError().
 int gpt_step_fused(const float* bf, const float* pf, const int* pi, float* bfo, float* pfo,
                    int* pio, int E, float dt, int vel_iters, int pos_iters, int incremental,
-                   void* stream) {
+                   int size_class, void* stream) {
   if (E <= 0) return 0;
-  const int threads = 32;
-  const int blocks = (E + threads - 1) / threads;
-  step_fused_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters, incremental);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (size_class == 0)
+    launch<GPT_SMALL_B, GPT_SMALL_P>(bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters,
+                                     incremental, st);
+  else if (size_class == 1)
+    launch<GPT_LARGE_B, GPT_LARGE_P>(bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters,
+                                     incremental, st);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -506,13 +570,24 @@ int gpt_step_fused(const float* bf, const float* pf, const int* pi, float* bfo, 
 
 #else  // host C++ build, for the CPU check
 
-extern "C" void gpt_step_fused_host(const World* world, const float* bf, const float* pf,
-                                    const int* pi, float* bfo, float* pfo, int* pio, int E,
-                                    float dt, int vel_iters, int pos_iters, int incremental) {
-  for (int e = 0; e < E; ++e)
-    tick_env(*world, e, bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters, pos_iters, incremental);
+// Returns 0, or 1 when the world does not fit ``size_class``.
+extern "C" int gpt_step_fused_host(const World* world, const float* bf, const float* pf,
+                                   const int* pi, float* bfo, float* pfo, int* pio, int E,
+                                   float dt, int vel_iters, int pos_iters, int incremental,
+                                   int size_class) {
+  const World& W = *world;
+  if (size_class == 0 && W.B <= GPT_SMALL_B && W.P <= GPT_SMALL_P) {
+    for (int e = 0; e < E; ++e)
+      tick_env<GPT_SMALL_B, GPT_SMALL_P>(W, e, bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters,
+                                         pos_iters, incremental);
+  } else if (size_class == 1 && W.B <= GPT_LARGE_B && W.P <= GPT_LARGE_P) {
+    for (int e = 0; e < E; ++e)
+      tick_env<GPT_LARGE_B, GPT_LARGE_P>(W, e, bf, pf, pi, bfo, pfo, pio, E, dt, vel_iters,
+                                         pos_iters, incremental);
+  } else {
+    return 1;
+  }
+  return 0;
 }
-
-extern "C" int gpt_world_bytes(void) { return (int)sizeof(World); }
 
 #endif  // __CUDACC__

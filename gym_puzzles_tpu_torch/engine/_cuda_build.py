@@ -12,6 +12,10 @@ binding, the world table and the launch counts.
   as ``struct World`` of ``csrc/tick.cuh``.  Each kernel's library has its
   own copy of that symbol and its own ``gpt_set_world``; a table is copied
   again only when it changes.
+* Size classes: each kernel is instantiated for a few ceilings of the body
+  and pair counts (``SIZE_CLASSES``, the ``GPT_SMALL_*`` / ``GPT_LARGE_*`` of
+  ``csrc/tick.cuh``); :func:`size_class` picks the smallest a table fits,
+  and the launch passes its index.
 * Each :class:`CudaKernel` counts its launches; :func:`launch_count` reads a
   count by the kernel's name.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +47,8 @@ HEADERS = ("tick.cuh",)  # included by every kernel source
 
 # compile-time maxima of csrc/tick.cuh
 MAX_B, MAX_F, MAX_P, MAX_V = 16, 32, 64, shp.MAX_POLYGON_VERTICES
+# (bodies, pairs) ceilings of the kernels' instantiations, smallest first
+SIZE_CLASSES = ((8, 24), (MAX_B, MAX_P))
 
 _c_int, _c_float = ctypes.c_int, ctypes.c_float
 
@@ -134,6 +141,31 @@ def world_struct(table: ShapeTable) -> World:
     return w
 
 
+def size_class(table: ShapeTable) -> int:
+    """Index into ``SIZE_CLASSES`` of the smallest instantiation whose
+    per-env arrays hold ``table``.  Raises ValueError for a table beyond
+    every class (as :func:`world_struct` does)."""
+    B, P = table.num_bodies, table.num_pairs
+    for index, (max_b, max_p) in enumerate(SIZE_CLASSES):
+        if B <= max_b and P <= max_p:
+            return index
+    raise ValueError(f"table has {B} bodies and {P} pairs; the CUDA kernels "
+                     f"take at most {MAX_B} and {MAX_P}")
+
+
+def live_pair_stats(live: torch.Tensor, envs_per_warp: int) -> dict:
+    """What bounds a sweep's length, from ``live`` [P, E] (the pairs a
+    kernel's sweeps visit): the mean live pairs per env, and the mean over
+    warps of the most any env of the warp has (a warp runs as long as its
+    most loaded env)."""
+    per_env = live.sum(dim=0).to(torch.float32)
+    E = per_env.shape[0]
+    pad = (-E) % envs_per_warp
+    warps = torch.cat([per_env, per_env.new_zeros(pad)]).view(-1, envs_per_warp)
+    return dict(mean=float(per_env.mean()), warp_max=float(warps.amax(dim=1).mean()),
+                max=float(per_env.max()), envs_per_warp=envs_per_warp)
+
+
 def _nvcc() -> str:
     for path in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if path and os.path.exists(path):
@@ -146,10 +178,14 @@ KERNELS: dict[str, "CudaKernel"] = {}
 
 class CudaKernel:
     """One kernel source: its build, its loaded library, the table last
-    copied to each device's constant memory, and the count of its launches."""
+    copied to each device's constant memory, and the count of its launches.
+    ``defines`` are ``-D`` options of its nvcc command (the builds that
+    ``bench_kernels.py`` compares; the port's own kernels take none)."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+    def __init__(self, name: str, source: str, entry: str, argtypes: list,
+                 defines: tuple = ()):
         self.name, self.source, self.entry, self.argtypes = name, source, entry, argtypes
+        self.defines = tuple(defines)
         self.lib = None
         self.uploaded = {}  # device index -> (table, World kept alive)
         self.launches = 0
@@ -160,7 +196,8 @@ class CudaKernel:
         """Compile the source for sm_90a into a shared library, unless a
         build of the same sources and flags exists.  Returns (library path,
         the compiler's output -- ptxas registers, stack frame and spills)."""
-        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        flags = NVCC_FLAGS + tuple(f"-D{d}" for d in self.defines)
+        digest = hashlib.sha1(" ".join(flags).encode())
         for name in (self.source,) + HEADERS:
             digest.update((CSRC / name).read_bytes())
         lib = Path(build_dir) / f"{self.name}_{digest.hexdigest()[:16]}.so"
@@ -169,7 +206,7 @@ class CudaKernel:
             return lib, log_path.read_text() if log_path.exists() else ""
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -184,17 +221,20 @@ class CudaKernel:
                 path, _log = self.build()
                 lib = ctypes.CDLL(str(path))
                 vp = ctypes.c_void_p
-                lib.gpt_world_bytes.argtypes = []
-                lib.gpt_world_bytes.restype = _c_int
                 lib.gpt_set_world.argtypes = [vp, vp]
                 lib.gpt_set_world.restype = _c_int
+                lib.gpt_envs_per_warp.argtypes = []
+                lib.gpt_envs_per_warp.restype = _c_int
                 fn = getattr(lib, self.entry)
                 fn.argtypes = self.argtypes
                 fn.restype = _c_int
-                if lib.gpt_world_bytes() != ctypes.sizeof(World):
-                    raise RuntimeError("csrc/tick.cuh World and _cuda_build.World disagree")
+                check_library(lib)
                 self.lib = lib
         return self.lib
+
+    def envs_per_warp(self) -> int:
+        """How many envs one warp of this build runs (``GPT_ENVS_PER_WARP``)."""
+        return self.load().gpt_envs_per_warp()
 
     def set_world(self, table: ShapeTable, device: torch.device, stream: int):
         index = device.index if device.index is not None else torch.cuda.current_device()
@@ -219,6 +259,47 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
+
+
+def check_library(lib):
+    """Raise unless a kernel library (device or host build) lays out
+    ``World`` and numbers its size classes as this module does."""
+    lib.gpt_world_bytes.argtypes = []
+    lib.gpt_world_bytes.restype = _c_int
+    lib.gpt_size_classes.argtypes = [ctypes.POINTER(_c_int)]
+    lib.gpt_size_classes.restype = _c_int
+    if lib.gpt_world_bytes() != ctypes.sizeof(World):
+        raise RuntimeError("csrc/tick.cuh World and _cuda_build.World disagree")
+    out = (_c_int * 4)()
+    n = lib.gpt_size_classes(out)
+    if tuple(zip(out[0:2 * n:2], out[1:2 * n:2])) != SIZE_CLASSES:
+        raise RuntimeError("csrc/tick.cuh size classes and _cuda_build.SIZE_CLASSES disagree")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel instantiation in an nvcc ``-Xptxas -v`` log: its size class
+    (the template's body and pair ceilings), registers, stack frame and spill
+    bytes."""
+    out, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            t = re.search(r"ILi(\d+)ELi(\d+)E", m.group(1))
+            current = dict(function=m.group(1), bodies=int(t.group(1)) if t else None,
+                           pairs=int(t.group(2)) if t else None)
+            out.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return [r for r in out if r["bodies"] is not None]
 
 
 def launch_count(name: str) -> int:

@@ -5,7 +5,8 @@ kernel (``csrc/solve_contacts.cu``, with the solve phases of
 ``csrc/tick.cuh`` that the fused tick kernel also calls) runs the whole
 sequential-impulse solve of one tick per env in one launch, one thread per
 env: warm start, velocity sweeps, clamped position integration, position
-sweeps with the per-island early exit.  ``world.step_batched`` runs the
+sweeps with the per-island early exit, each sweep over the env's live pairs
+only.  ``world.step_batched`` runs the
 narrow phase, islands, constraint setup and sleep bookkeeping around it as
 plain PyTorch ops.
 
@@ -14,6 +15,8 @@ plain PyTorch ops.
   table in ``__constant__`` memory.
 * Plane layout: the JAX kernel's (``solver_pallas.py:79-83, 718-746``), env
   axis last; any number of envs.
+* The launch picks the kernel's instantiation from the table
+  (``_cuda_build.size_class``).
 
 :func:`solve_contacts` launches the kernel for CUDA tensors (or raises); for
 CPU tensors it runs :func:`solve_contacts_plain`.  Nothing on the GPU path
@@ -41,7 +44,7 @@ BODY = ("velx", "vely", "om", "posx", "posy", "ang")
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 KERNEL = cb.CudaKernel(
     "solve_contacts", "solve_contacts.cu", "gpt_solve_contacts",
-    [_vp] * 8 + [_int, ctypes.c_float, _int, _int, _int, _vp])
+    [_vp] * 8 + [_int, ctypes.c_float, _int, _int, _int, _int, _vp])
 
 
 def pack(vc: slv.VelocityConstraints, man, bodies_pos, bodies_angle, vel, omega, active, link):
@@ -106,7 +109,7 @@ def launch(table: ShapeTable, pair_a, pair_b, active, body, imp, dt: float, vel_
     KERNEL.launch(table, dev, pair_a.data_ptr(), pair_b.data_ptr(), active.data_ptr(),
                   body.data_ptr(), imp.data_ptr(), body_o.data_ptr(), imp_o.data_ptr(),
                   done_o.data_ptr(), E, float(dt), int(vel_iters), int(pos_iters),
-                  int(bool(incremental_trig)))
+                  int(bool(incremental_trig)), cb.size_class(table))
     return body_o, imp_o, done_o
 
 

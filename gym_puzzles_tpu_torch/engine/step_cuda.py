@@ -3,12 +3,14 @@
 Port of ``gym_puzzles_tpu/engine/step_pallas.py::step_fused``.  The kernel
 (``csrc/step_fused.cu`` with the solve phases in ``csrc/tick.cuh``) runs one
 whole engine tick per env -- narrow phase through sleep -- in one launch, one
-thread per env.
+thread per env; its sweeps visit only each env's live pairs.
 
 * Build, binding, the world table in ``__constant__`` memory and the launch
   count: ``engine/_cuda_build.py``, shared with the staged solve kernel
   (``engine/solver_cuda.py``).
 * Plane layout: the JAX kernel's (``step_pallas.py:81-95``), env axis last.
+* The launch picks the kernel's instantiation from the table
+  (``_cuda_build.size_class``).
 
 :func:`step_fused` launches the kernel for CUDA tensors (or raises); for CPU
 tensors it runs the plain version, ``world.step``.  Nothing on the GPU path
@@ -41,7 +43,7 @@ P_OUT = P_IN + ("begin", "end")
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 KERNEL = cb.CudaKernel(
     "step_fused", "step_fused.cu", "gpt_step_fused",
-    [_vp] * 6 + [_int, ctypes.c_float, _int, _int, _int, _vp])
+    [_vp] * 6 + [_int, ctypes.c_float, _int, _int, _int, _int, _vp])
 
 
 def launch_count(name: str = "step_fused") -> int:
@@ -144,7 +146,7 @@ def launch(table: ShapeTable, bf, pf, pi, dt: float, vel_iters: int, pos_iters: 
     pio = torch.empty((2 * P, E), dtype=torch.int32, device=dev)
     KERNEL.launch(table, dev, bf.data_ptr(), pf.data_ptr(), pi.data_ptr(), bfo.data_ptr(),
                   pfo.data_ptr(), pio.data_ptr(), E, float(dt), int(vel_iters),
-                  int(pos_iters), int(bool(incremental_trig)))
+                  int(pos_iters), int(bool(incremental_trig)), cb.size_class(table))
     return bfo, pfo, pio
 
 

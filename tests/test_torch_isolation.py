@@ -22,6 +22,7 @@ import json, sys, torch
 torch.set_num_threads(1)
 import gym_puzzles_tpu_torch as gpt
 import gym_puzzles_tpu_torch.convert, gym_puzzles_tpu_torch.profile_step
+import gym_puzzles_tpu_torch.bench_kernels
 import gym_puzzles_tpu_torch.engine.solver_cuda, gym_puzzles_tpu_torch.engine.step_cuda
 import gym_puzzles_tpu_torch.engine._cuda_build
 for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),

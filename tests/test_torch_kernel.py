@@ -10,7 +10,13 @@ On the CPU:
   v0, Heavy-v0 and L-block spawns within 1e-5 (only cos/sin implementations
   differ), and the incremental position-pass trig within 1e-6 of the exact
   one;
-* a table beyond the kernel's compile-time maxima is refused.
+* the live-pair lists the sweeps walk: envs with 0, 1 and several live
+  pairs, some apart in the table, a sleeping island whose pairs keep
+  manifold points and degraded block solves, in both instantiations (v0,
+  v2; the v0 world in both, bitwise equal); two islands of which one
+  converges early, seen through the sleep flags;
+* a table beyond the kernel's compile-time maxima is refused, and each
+  world gets the smallest instantiation it fits.
 """
 
 import ctypes
@@ -26,7 +32,8 @@ from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import step_cuda
 from gym_puzzles_tpu_torch.engine import types
 from gym_puzzles_tpu_torch.engine import world
-from tests.torch_port_helpers import small_tables
+from tests.torch_port_helpers import (live_pair_batch, live_pair_cases, small_tables,
+                                      two_island_tick)
 
 torch.set_num_threads(1)
 
@@ -82,6 +89,19 @@ def test_oversize_table_refused():
              for _ in range(_cuda_build.MAX_B + 1)]
     with pytest.raises(ValueError, match="at most"):
         _cuda_build.world_struct(types.build_shape_table(specs))
+    with pytest.raises(ValueError, match="at most"):
+        _cuda_build.size_class(types.build_shape_table(specs))
+
+
+@pytest.mark.parametrize("env_id, kw, size_class", [
+    ("MultiRobotPuzzle-v0", {}, 0), ("MultiRobotPuzzle-v3", {}, 0),
+    ("MultiRobotPuzzle-v3", dict(num_agents=3), 1), ("MultiRobotPuzzleHeavy-v0", {}, 1),
+    ("MultiRobotPuzzle-v2", {}, 1)])
+def test_size_class(env_id, kw, size_class):
+    table = _logic(env_id, **kw).layout.table
+    assert _cuda_build.size_class(table) == size_class
+    max_b, max_p = _cuda_build.SIZE_CLASSES[size_class]
+    assert table.num_bodies <= max_b and table.num_pairs <= max_p
 
 
 @pytest.fixture(scope="module")
@@ -96,23 +116,28 @@ def host_kernel(tmp_path_factory):
                    check=True, capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(out))
     vp = ctypes.c_void_p
-    lib.gpt_step_fused_host.argtypes = [vp] * 7 + [ctypes.c_int, ctypes.c_float,
+    lib.gpt_step_fused_host.argtypes = [vp] * 7 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.gpt_step_fused_host.restype = None
-    assert lib.gpt_world_bytes() == ctypes.sizeof(_cuda_build.World)
+    lib.gpt_step_fused_host.restype = ctypes.c_int
+    _cuda_build.check_library(lib)
     return lib
 
 
-def host_tick(lib, incremental, table, bodies, contacts, force, torque, wake, dt, vi, pi):
+def host_tick(lib, incremental, table, bodies, contacts, force, torque, wake, dt, vi, pi,
+              size_class=None):
+    """One tick of the host build, in the instantiation the wrapper would
+    pick unless ``size_class`` names one."""
     bf, pf, pid = step_cuda.pack(bodies, contacts, force, torque, wake)
     B, P, E = table.num_bodies, table.num_pairs, bf.shape[-1]
     bfo = torch.full((8 * B, E), float("nan"))
     pfo = torch.full((17 * P, E), float("nan"))
     pio = torch.full((2 * P, E), -7, dtype=torch.int32)
     w = _cuda_build.world_struct(table)
-    lib.gpt_step_fused_host(ctypes.byref(w), bf.data_ptr(), pf.data_ptr(), pid.data_ptr(),
-                            bfo.data_ptr(), pfo.data_ptr(), pio.data_ptr(), E, dt, vi, pi,
-                            int(incremental))
+    cls = _cuda_build.size_class(table) if size_class is None else size_class
+    err = lib.gpt_step_fused_host(ctypes.byref(w), bf.data_ptr(), pf.data_ptr(),
+                                  pid.data_ptr(), bfo.data_ptr(), pfo.data_ptr(),
+                                  pio.data_ptr(), E, dt, vi, pi, int(incremental), cls)
+    assert err == 0, "the world does not fit the size class"
     return step_cuda.unpack(table, bfo, pfo, pio)
 
 
@@ -158,6 +183,70 @@ def test_host_kernel_v0_spawns(host_kernel, env_id, block_shape):
     bi, ci, _ = host_tick(host_kernel, True, *args)
     torch.testing.assert_close(bi.pos, bk.pos, rtol=0, atol=1e-6)
     torch.testing.assert_close(bi.angle, bk.angle, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("env_id, seed, size_class", [
+    ("MultiRobotPuzzle-v0", 2, 0), ("MultiRobotPuzzle-v2", 0, 1)])
+def test_host_kernel_live_pair_lists(host_kernel, env_id, seed, size_class):
+    """The sweeps walk each env's live rows only: envs with 0, 1 and several
+    live pairs (some apart in the table), a sleeping island whose pairs keep
+    manifold points (carried, not solved) and, on v0, degraded block
+    solves, against the plain tick; v0 also in the larger instantiation,
+    bitwise equal."""
+    args = live_pair_batch(env_id, 16, seed)
+    cases = live_pair_cases(*args)
+    n = cases["per_env"]
+    assert (n == 0).any() and (n == 1).any() and (n >= 2).any() and cases["apart"].any()
+    assert cases["unsolved_with_points"].any()
+    assert cases["degraded"].any() or env_id != "MultiRobotPuzzle-v0"
+    assert _cuda_build.size_class(args[0]) == size_class
+    args = args + (DT, 12, 6)
+    bp, cp, ip = world.step(*args)
+    bk, ck, ik = host_tick(host_kernel, False, *args)
+    for name in ("pos", "angle", "vel", "omega"):
+        torch.testing.assert_close(getattr(bk, name), getattr(bp, name), rtol=0, atol=1e-5)
+    for name in ("normal_impulse", "tangent_impulse"):
+        torch.testing.assert_close(getattr(ck, name), getattr(cp, name), rtol=0, atol=1e-5)
+    for name in ("ids", "count", "flip"):
+        assert torch.equal(getattr(ck.man, name), getattr(cp.man, name)), name
+    assert torch.equal(bk.awake, bp.awake) and torch.equal(ck.touching, cp.touching)
+    assert torch.equal(ik.begin, ip.begin) and torch.equal(ik.end, ip.end)
+    # the sleeping envs' manifolds come through as they went in
+    asleep = cases["unsolved_with_points"]
+    assert torch.equal(ck.man.count[asleep], args[2].man.count[asleep])
+    bi, ci, _ = host_tick(host_kernel, True, *args)
+    torch.testing.assert_close(bi.pos, bk.pos, rtol=0, atol=1e-6)
+    torch.testing.assert_close(bi.angle, bk.angle, rtol=0, atol=1e-6)
+    if size_class == 0:
+        big = host_tick(host_kernel, False, *args, size_class=1)
+        for x, y in zip(big, (bk, ck, ik)):
+            for name in x.__dataclass_fields__:
+                u, v = getattr(x, name), getattr(y, name)
+                if hasattr(u, "__dataclass_fields__"):
+                    assert all(torch.equal(getattr(u, f), getattr(v, f))
+                               for f in u.__dataclass_fields__)
+                else:
+                    assert torch.equal(u, v), name
+
+
+def test_host_kernel_island_done_early(host_kernel):
+    """Two islands, one converging at the first position sweep and one that
+    cannot in 2: with every sleep timer one tick short of the limit, a body
+    falls asleep exactly when its island's position solve is done, so the
+    awake flags read the per-island early exit."""
+    layout, tick = two_island_tick()
+    table, bodies, contacts, force, torque, wake = tick
+    bodies = bodies.replace(sleep_time=torch.full_like(bodies.sleep_time, 0.5 - DT / 2))
+    args = (table, bodies, contacts, force, torque, wake, DT, 8, 2)
+    bp, cp, _ = world.step(*args)
+    blk, a0 = layout.block_slot, int(layout.agent_slots[0])
+    assert bp.awake[blk].all() and bp.awake[a0].all()
+    assert not bp.awake[a0 + 1:].any(), "the converged island and the free agents sleep"
+    for incremental in (False, True):
+        bk, ck, _ = host_tick(host_kernel, incremental, *args)
+        assert torch.equal(bk.awake, bp.awake)
+        torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-5)
+        torch.testing.assert_close(ck.normal_impulse, cp.normal_impulse, rtol=0, atol=1e-5)
 
 
 @pytest.fixture

@@ -17,6 +17,10 @@ the kernel itself on the card (marked ``cuda``; skipped without one).
   trig modes, with a ragged env count; two islands of which one converges
   early; a 2-point manifold whose block solve is degraded to 1 point;
   ``pos_iters=0``.
+* the live-pair lists its sweeps walk: envs with 0, 1 and several live
+  pairs, some apart in the table, a sleeping island whose pairs keep
+  manifold points, in both instantiations (v0, v2), and a solved pair whose
+  velocity count is 0 (the velocity and position lists differ);
 * pack then unpack of the kernel's planes is the identity.
 """
 
@@ -39,7 +43,8 @@ from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import solver as slv
 from gym_puzzles_tpu_torch.engine import solver_cuda
 from gym_puzzles_tpu_torch.engine import world
-from tests.torch_port_helpers import np_tree, small_tables
+from tests.torch_port_helpers import (live_pair_batch, live_pair_cases, np_tree, small_tables,
+                                      two_island_tick)
 
 solver_pallas.INTERPRET = True  # CPU: the Pallas kernel runs interpreted
 torch.set_num_threads(1)
@@ -146,22 +151,27 @@ def host_kernel(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     vp = ctypes.c_void_p
     lib.gpt_solve_contacts_host.argtypes = [vp] * 9 + [ctypes.c_int, ctypes.c_float,
-                                                       ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.gpt_solve_contacts_host.restype = None
-    assert lib.gpt_world_bytes() == ctypes.sizeof(cb.World)
+                                                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                       ctypes.c_int]
+    lib.gpt_solve_contacts_host.restype = ctypes.c_int
+    cb.check_library(lib)
     return lib
 
 
 def host_solve(lib, incremental, table, vc, man, pos, angle, vel, omega, active, link,
-               dt, vi, pi):
+               dt, vi, pi, size_class=None):
+    """One solve of the host build, in the instantiation the wrapper would
+    pick unless ``size_class`` names one."""
     planes = solver_cuda.pack(vc, man, pos, angle, vel, omega, active, link)
     body, imp = planes[3], planes[4]
     body_o, imp_o = torch.full_like(body, float("nan")), torch.full_like(imp, float("nan"))
     done_o = torch.full((table.num_bodies, body.shape[-1]), float("nan"))
     w = cb.world_struct(table)
-    lib.gpt_solve_contacts_host(ctypes.byref(w), *(x.data_ptr() for x in planes),
-                                body_o.data_ptr(), imp_o.data_ptr(), done_o.data_ptr(),
-                                body.shape[-1], dt, vi, pi, int(incremental))
+    cls = cb.size_class(table) if size_class is None else size_class
+    err = lib.gpt_solve_contacts_host(ctypes.byref(w), *(x.data_ptr() for x in planes),
+                                      body_o.data_ptr(), imp_o.data_ptr(), done_o.data_ptr(),
+                                      body.shape[-1], dt, vi, pi, int(incremental), cls)
+    assert err == 0, "the world does not fit the size class"
     assert not torch.isnan(done_o).any()
     return solver_cuda.unpack(table, body_o, imp_o, done_o)
 
@@ -221,21 +231,10 @@ def test_host_kernel_spawns(host_kernel, env_id, E):
 
 
 def two_island_inputs(vi, pi):
-    """Heavy-v0 (block + 5 agents): agent 0 sits 0.3 m inside the block (an
-    island that cannot converge in ``pi`` sweeps); agents 1 and 2 touch
-    within the polygon skin, 1 cm apart (an island that converges at once); agents 3 and 4
-    touch nothing."""
-    logic = _logic("MultiRobotPuzzleHeavy-v0")
-    E = 5
-    origin = torch.tensor([[0.0, 8.0], [21.33, 8.0], [10.67, 0.0], [10.67, 16.0],
-                           [10.0, 8.0], [6.55, 9.0], [3.0, 3.0], [4.51, 3.0],
-                           [15.0, 3.0], [18.0, 13.0]])
-    state = logic.inject(origin[..., None].expand(10, 2, E).contiguous(), torch.zeros(10, E),
-                         torch.tensor([320.0, 262.5, 0.0])[:, None].expand(3, E))
-    act = torch.zeros(logic.cfg.act_dim, E)
-    bodies, force, torque, wake = logic._control(state, act)
-    return logic.layout, solve_inputs(logic.layout.table, bodies, state.contacts, force,
-                                      torque, wake, vi, pi)
+    """The solve inputs of ``two_island_tick``'s Heavy-v0 scene (two islands,
+    one deep, one that converges at once, and two free agents)."""
+    layout, tick = two_island_tick()
+    return layout, solve_inputs(*tick, vi, pi)
 
 
 def test_host_kernel_two_islands_one_converges(host_kernel):
@@ -275,6 +274,42 @@ def test_host_kernel_degraded_block_solve(host_kernel):
     full = host_solve(host_kernel, False, args[0], vc, *args[2:])
     assert not torch.equal(full[4], got[4])
     assert torch.equal(got[4][:, 1][two], vc.normal_impulse[:, 1][two])
+
+
+@pytest.mark.parametrize("env_id, seed, size_class", [
+    ("MultiRobotPuzzle-v0", 2, 0), ("MultiRobotPuzzle-v2", 0, 1)])
+def test_host_kernel_live_pair_lists(host_kernel, env_id, seed, size_class):
+    """The sweeps walk each env's live rows only: envs with 0, 1 and several
+    live pairs (some apart in the table) and a sleeping island whose pairs
+    keep manifold points, against the plain version; then a solved pair
+    with a velocity count of 0 in every env that has two live pairs, so the
+    velocity list skips what the position list visits.  v0 also runs in the
+    larger instantiation, bitwise equal."""
+    tick = live_pair_batch(env_id, 16, seed)
+    cases = live_pair_cases(*tick)
+    n = cases["per_env"]
+    assert (n == 0).any() and (n == 1).any() and (n >= 2).any() and cases["apart"].any()
+    assert cases["unsolved_with_points"].any()
+    args = list(solve_inputs(*tick, 12, 6))
+    assert cb.size_class(args[0]) == size_class
+    want = solver_cuda.solve_contacts_plain(*args)
+    got = host_solve(host_kernel, False, *args)
+    assert_same(got, want, 1e-5)
+    if size_class == 0:
+        for g, w in zip(host_solve(host_kernel, False, *args, size_class=1), got):
+            assert torch.equal(g, w)
+
+    vc = args[1]
+    live = vc.solve & (vc.count > 0)
+    first = live & (live.cumsum(dim=0) == 1) & (live.sum(dim=0) >= 2)
+    assert first.any()
+    args[1] = vc.replace(count=torch.where(first, 0, vc.count).to(torch.int32))
+    want = solver_cuda.solve_contacts_plain(*args)
+    got = host_solve(host_kernel, True, *args)
+    assert_same(got, want, 1e-5)
+    # the zeroed pairs kept their impulses, and their positions were solved
+    assert torch.equal(got[4][first[:, None].expand_as(got[4])],
+                       vc.normal_impulse[first[:, None].expand_as(got[4])])
 
 
 def test_host_kernel_no_position_iterations(host_kernel):

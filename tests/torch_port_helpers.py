@@ -178,3 +178,66 @@ def assert_trees_close(jax_out, torch_out, rtol=1e-5, atol=1e-6):
             np.testing.assert_array_equal(t, j)
         else:
             np.testing.assert_allclose(t, j, rtol=rtol, atol=atol)
+
+
+# --------------------------------------------------------------------------
+# inputs whose live-pair lists differ from env to env (the CUDA kernels'
+# sweeps visit only the live pairs)
+# --------------------------------------------------------------------------
+
+
+def live_pair_batch(env_id, E, seed, vi=8, pi=4):
+    """The second tick's inputs (table, bodies, contacts, force, torque,
+    wake) for E spawns of ``env_id`` under random controls, the first tick
+    plain; the first quarter of the envs is then put to sleep (dynamic bodies
+    asleep and still, no wake, no force), so its pairs keep their manifold
+    points without being solved."""
+    logic = torch_logic(env_id)
+    table = logic.layout.table
+    gen = torch.Generator().manual_seed(seed)
+    state, _ = logic.reset_fast(gen, E, logic.default_params())
+    act = torch.rand((logic.cfg.act_dim, E), generator=gen) * 2 - 1
+    b, force, torque, wake = logic._control(state, act)
+    bodies, contacts, _ = tw.step(table, b, state.contacts, force, torque, wake, DT, vi, pi)
+    b, force, torque, wake = logic._control(state.replace(bodies=bodies), act)
+    sleep = torch.as_tensor(~table.is_static)[:, None] & (torch.arange(E) < E // 4)[None]
+    b = b.replace(awake=b.awake & ~sleep, vel=torch.where(sleep[:, None], 0.0, b.vel),
+                  omega=torch.where(sleep, 0.0, b.omega))
+    return (table, b, contacts, torch.where(sleep[:, None], 0.0, force),
+            torch.where(sleep, 0.0, torque), wake & ~sleep)
+
+
+def live_pair_cases(table, bodies, contacts, force, torque, wake):
+    """What the plain prologue makes of a tick's inputs, as the cases the
+    kernels' live-pair lists must get right: per env the live pairs (solved,
+    effective count > 0) and whether two of them are apart in the table;
+    pairs with manifold points that are not solved (their island sleeps);
+    solved 2-point manifolds whose block solve is degraded to 1 point."""
+    vc, man = tw.before_solve(table, bodies, contacts, force, torque, wake, DT)[0][:2]
+    live = vc.solve & (vc.count > 0)
+    apart = torch.zeros(live.shape[1], dtype=torch.bool)
+    for e in range(live.shape[1]):
+        idx = live[:, e].nonzero().flatten()
+        apart[e] = bool((idx[1:] - idx[:-1] > 1).any()) if len(idx) > 1 else False
+    return dict(per_env=live.sum(dim=0), apart=apart,
+                unsolved_with_points=(man.count > 0) & ~vc.solve,
+                degraded=(man.count == 2) & (vc.count == 1) & vc.solve)
+
+
+def two_island_tick():
+    """Heavy-v0 (block + 5 agents), 5 identical envs: agent 0 sits 0.3 m
+    inside the block (an island that cannot converge in a few position
+    sweeps); agents 1 and 2 touch within the polygon skin, 1 cm apart (an
+    island that converges at once); agents 3 and 4 touch nothing.  Returns
+    (layout, one tick's inputs (table, bodies, contacts, force, torque,
+    wake)) under zero actions."""
+    logic = torch_logic("MultiRobotPuzzleHeavy-v0")
+    E = 5
+    origin = torch.tensor([[0.0, 8.0], [21.33, 8.0], [10.67, 0.0], [10.67, 16.0],
+                           [10.0, 8.0], [6.55, 9.0], [3.0, 3.0], [4.51, 3.0],
+                           [15.0, 3.0], [18.0, 13.0]])
+    state = logic.inject(origin[..., None].expand(10, 2, E).contiguous(), torch.zeros(10, E),
+                         torch.tensor([320.0, 262.5, 0.0])[:, None].expand(3, E))
+    act = torch.zeros(logic.cfg.act_dim, E)
+    bodies, force, torque, wake = logic._control(state, act)
+    return logic.layout, (logic.layout.table, bodies, state.contacts, force, torque, wake)
