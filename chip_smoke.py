@@ -26,10 +26,27 @@ Phases (each raises on failure; the script exits non-zero on any):
    through ``make(...)`` with the default device: v0 fused, v0 and v2 staged
    (``backend='pallas'``), v2 and v3 fused; every output finite; exactly
    200 x frameskip launches of the path's kernel and none of the other;
-6. both kernels' times per variant, beside the mean and warp-max live pairs
-   per env of the inputs timed (the sweeps visit only those), and one JSON
-   line describing each ported kernel (times, bound, launches);
-7. last line: ``{"ok": true, "device": {...}}``.
+7. train: PPO on v0 at 4096 envs through ``train.ppo.PPO`` (fused backend,
+   180/60, ActorCritic 256x256, the JAX package's full-width recipe: n_steps
+   64, batch 8192, 4 epochs, the rest from ``train_configs/ppo-mrp-v0.json``)
+   for 3 updates: finite metrics, params moved, ``timesteps`` 786,432 as
+   int64, exactly 192 launches of the fused tick kernel and none of the
+   solve kernel; saved after update 2, restored into a fresh learner, whose
+   update 3 must equal the uninterrupted one bit for bit (params, Adam state,
+   normalizer, env state, generators, metrics); each update's wall time,
+   env-steps/s including the learner, and the split of timed updates into
+   env step, policy forward, GAE and update;
+8. eval of the committed v0 policy (``gym_puzzles_tpu_torch/policies/``):
+   its deterministic actions on the obs of 4096 resets on the card against
+   the CPU (1e-5), then 4096 deterministic episodes of at most 2000 steps through
+   ``evaluate_policy_batched`` (fused): completion share (length < 2000) in
+   [0.82, 0.93] and mean return in [5190, 6800], the bands around the JAX
+   package's record for this policy (337/384, mean 5992);
+6. (run after 7 and 8) both kernels' times per variant, beside the mean and
+   warp-max live pairs per env of the inputs timed (the sweeps visit only
+   those), and one JSON line describing each ported kernel (times, bound,
+   launches);
+9. last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; imports nothing of JAX or the JAX package.
 """
@@ -39,8 +56,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -50,6 +69,10 @@ from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
+from gym_puzzles_tpu_torch.train import checkpoint as ckpt
+from gym_puzzles_tpu_torch.train import evaluate
+from gym_puzzles_tpu_torch.train import normalize as nrm
+from gym_puzzles_tpu_torch.train.ppo import PPO, PhaseTimer, PPOConfig
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
@@ -93,6 +116,24 @@ SPAWN_LIMITS = dict(no_contact_max=1e-4, median=1e-3, max=1e-4, angle=2e-3, impu
 # last-bit difference can flip it: at most this share of the envs in contact
 # (measured: no env differs)
 SOLVED_FLAGS_SHARE = 0.001
+
+ROOT = Path(__file__).resolve().parent
+# phase 7: the JAX package's full-width v0 recipe (docs/BENCHMARKS.md:187)
+TRAIN_CONFIG = ROOT / "train_configs" / "ppo-mrp-v0.json"
+TRAIN_OVERRIDES = dict(n_envs=NUM_ENVS, n_steps=64, batch_size=8192, n_epochs=4,
+                       env_backend="fused", seed=0)
+TRAIN_UPDATES = 3
+TIMED_UPDATES = 2  # after the resumed update 3, each split by part
+# phase 8: the committed round-4 v0 policy and the bands around the JAX
+# package's record of it (README: 337/384 completions, mean 5992 over 3 x 128
+# deterministic episodes, per-episode std ~5,000): three standard errors of
+# the difference between two samples of 384 and 4096 episodes
+POLICY_NPZ = ROOT / "gym_puzzles_tpu_torch" / "policies" / "MultiRobotPuzzle-v0_r4.npz"
+EVAL_EPISODES = 4096
+EVAL_MAX_STEPS = 2000
+COMPLETION_BAND = (0.82, 0.93)
+RETURN_BAND = (5190.0, 6800.0)
+ACTION_TOL = 1e-5
 
 
 def card() -> str:
@@ -549,6 +590,161 @@ def time_kernels(dev, env_id, card_line) -> dict:
                 solve_bound=sbound)
 
 
+def on_card(obj, what):
+    """Raise unless ``obj`` (a learner) defaulted to the card."""
+    if obj.device.type != "cuda":
+        raise AssertionError(f"{what} defaulted to {obj.device}")
+
+
+def tree_diff(a, b, path="") -> list[str]:
+    """The paths of the leaves where two checkpoint trees differ (NaN equal
+    to NaN)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path}<keys>"]
+        return [p for k in a for p in tree_diff(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, torch.Tensor):
+        same = a.dtype == b.dtype and a.shape == b.shape and (
+            torch.equal(a, b) or (a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                                  and torch.equal(a.nan_to_num(), b.nan_to_num())))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def run_training(card_line) -> int:
+    """Phase 7: ``TRAIN_UPDATES`` PPO updates on v0 at 4096 envs, fused, with
+    the launch counts set to 0 just before and read just after; a save after
+    update 2 restored into a fresh learner must reproduce update 3 bit for
+    bit; then ``TIMED_UPDATES`` updates split by part.  Returns the fused
+    kernel's launches in the counted updates."""
+    cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES)
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must keep full precision (TF32 off)")
+    algo = PPO(cfg)
+    on_card(algo, "PPO")
+    per_update = cfg.n_steps * cfg.n_envs
+    print(f"  {cfg.env_id} n_envs {cfg.n_envs} n_steps {cfg.n_steps} batch {cfg.batch_size} "
+          f"epochs {cfg.n_epochs} lr {cfg.learning_rate} target_kl {cfg.target_kl} "
+          f"net {cfg.net_arch} backend {cfg.env_backend} "
+          f"{algo.env.cfg.velocity_iters}/{algo.env.cfg.position_iters}  [{card_line}]",
+          flush=True)
+    ts = algo.init_state()
+    params0 = {k: v.clone() for k, v in ts.params.items()}
+    torch.cuda.synchronize()
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        step_cuda.reset_launch_count()
+        walls = []
+        for u in range(TRAIN_UPDATES):
+            t0 = time.perf_counter()
+            ts, metrics = algo.train_step(ts)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if u == TRAIN_UPDATES - 2:
+                saved_at = ckpt.step_count(ts.timesteps)
+                ckpt.save(tmp, ts, saved_at)  # between updates: not timed
+            m = {k: (v.item() if isinstance(v, torch.Tensor) else v) for k, v in metrics.items()}
+            print(f"  update {u + 1}: {walls[-1]:.3f} s wall, {per_update / walls[-1]:,.0f} "
+                  f"env-steps/s; " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float)
+                                              else f"{k} {v}" for k, v in m.items())
+                  + f"  [{card_line}]", flush=True)
+            bad = [k for k, v in m.items() if k != "ep_rew_mean" and isinstance(v, float)
+                   and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"train: non-finite metrics {bad}")
+        launches = {name: step_cuda.launch_count(name) for name in ("step_fused",
+                                                                     "solve_contacts")}
+        want = TRAIN_UPDATES * cfg.n_steps * algo.env.cfg.frameskip
+        if launches != {"step_fused": want, "solve_contacts": 0}:
+            raise AssertionError(f"train: launches {launches}, expected {want} of step_fused "
+                                 "and none of solve_contacts")
+        if ts.timesteps.dtype != torch.int64 or int(ts.timesteps) != TRAIN_UPDATES * per_update:
+            raise AssertionError(f"train: timesteps {ts.timesteps!r}")
+        moved = sum(int((ts.params[k] != params0[k]).sum()) for k in params0)
+        if not moved:
+            raise AssertionError("train: params did not move")
+        rate = TRAIN_UPDATES * per_update / sum(walls)
+        print(f"  {TRAIN_UPDATES} updates, {TRAIN_UPDATES * per_update} env steps in "
+              f"{sum(walls):.3f} s: {rate:,.0f} env-steps/s including the learner "
+              f"({(TRAIN_UPDATES - 1) * per_update / sum(walls[1:]):,.0f} without update 1); "
+              f"launches {launches}; {moved} of "
+              f"{sum(v.numel() for v in params0.values())} params moved  [{card_line}]",
+              flush=True)
+
+        fresh = PPO(cfg)
+        rs = ckpt.restore(tmp, fresh.init_state(), saved_at)
+    timer = PhaseTimer(fresh.device)
+    rs, rmetrics = fresh.train_step(rs, timer=timer)
+    diff = (tree_diff(ckpt.to_tree(rs), ckpt.to_tree(ts), "state")
+            + tree_diff(ckpt.to_tree(rmetrics), ckpt.to_tree(metrics), "metrics"))
+    if diff:
+        raise AssertionError(f"train: the resumed update {TRAIN_UPDATES} differs in {diff}")
+    print(f"  resume: saved after update {TRAIN_UPDATES - 1} (step {saved_at}), restored into a "
+          f"fresh learner: update {TRAIN_UPDATES} equal bit for bit (params, Adam state, "
+          f"normalizer, env state, generators, metrics)  [{card_line}]", flush=True)
+    splits = [timer.seconds]
+    for _ in range(TIMED_UPDATES):
+        timer = PhaseTimer(fresh.device)
+        rs, _ = fresh.train_step(rs, timer=timer)
+        splits.append(timer.seconds)
+    for k, sp in enumerate(splits):
+        total = sum(sp.values())
+        print(f"  timed update {TRAIN_UPDATES + k}: {total:.3f} s = "
+              + ", ".join(f"{name} {sec:.3f} s ({sec / total:.1%})" for name, sec in sp.items())
+              + f"  [{card_line}]", flush=True)
+    return launches["step_fused"]
+
+
+def run_eval(card_line):
+    """Phase 8: the committed v0 policy's deterministic actions on the card
+    against the CPU, then ``EVAL_EPISODES`` deterministic episodes held to the
+    bands around the JAX package's record."""
+    cfg = PPOConfig(env_id=ENV_ID, n_envs=1, n_steps=2, batch_size=2, n_epochs=1)
+    algo, algo_cpu = PPO(cfg), PPO(cfg, device="cpu")
+    on_card(algo, "the eval learner")
+    st = ckpt.restore_policy(POLICY_NPZ, algo.init_state())
+    st_cpu = ckpt.restore_policy(POLICY_NPZ, algo_cpu.init_state())
+    # the obs of 4096 reference resets (one random step from a spawn)
+    _state, obs = make(ENV_ID, num_envs=EVAL_EPISODES, reset_mode="reference",
+                       device=algo.device).reset(seed=0)
+    with torch.no_grad():
+        got = evaluate.policy_action(algo, st.params, st.normalizer, obs, True)
+        want = evaluate.policy_action(algo_cpu, st_cpu.params, st_cpu.normalizer, obs.cpu(), True)
+        raw = [a.apply(s.params, nrm.normalize_obs(s.normalizer, o, update=False)[1])[0]
+               for a, s, o in ((algo, st, obs), (algo_cpu, st_cpu, obs.cpu()))]
+    err = maxdiff(got.cpu(), want)
+    raw_err = float(((raw[0].cpu() - raw[1]).abs() / raw[1].abs().clamp_min(1.0)).max())
+    print(f"  deterministic actions of {POLICY_NPZ.name} on the obs of {EVAL_EPISODES} resets, "
+          f"card against CPU: max abs diff {err:.3e} (limit {ACTION_TOL:g}); unclipped means "
+          f"{raw_err:.3e} relative to max(1, |mean|) (limit {ACTION_TOL:g}); "
+          f"{float((want.abs() >= 1).float().mean()):.3f} of the actions at the clip  "
+          f"[{card_line}]", flush=True)
+    if not (err <= ACTION_TOL and raw_err <= ACTION_TOL):
+        raise AssertionError("eval: the card's actions differ from the CPU's")
+
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    ret_mean, ret_std, returns, lengths = evaluate.evaluate_policy_batched(
+        algo, st, n_episodes=EVAL_EPISODES, deterministic=True, seed=0,
+        max_steps=EVAL_MAX_STEPS)
+    wall = time.perf_counter() - t0
+    lengths = np.asarray(lengths)
+    completions = int((lengths < EVAL_MAX_STEPS).sum())
+    share = completions / EVAL_EPISODES
+    print(f"  {EVAL_EPISODES} deterministic episodes (max {EVAL_MAX_STEPS} steps, fused, "
+          f"{VI}/{PI}): mean return {ret_mean:.2f}, std {ret_std:.2f}, completions "
+          f"{completions}/{EVAL_EPISODES} = {share:.4f} (band {COMPLETION_BAND}), mean return "
+          f"band {RETURN_BAND}; median length {float(np.median(lengths)):.0f}; "
+          f"{wall:.1f} s wall, {step_cuda.launch_count('step_fused')} launches of step_fused  "
+          f"[{card_line}]", flush=True)
+    if not (np.isfinite(returns).all() and lengths.min() >= 1):
+        raise AssertionError("eval: non-finite returns or empty episodes")
+    if not (COMPLETION_BAND[0] <= share <= COMPLETION_BAND[1]
+            and RETURN_BAND[0] <= ret_mean <= RETURN_BAND[1]):
+        raise AssertionError("eval: the committed policy left its bands")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -607,6 +803,11 @@ def main() -> int:
     run_main_path(dev, card_line, "MultiRobotPuzzle-v2", "fused")
     run_main_path(dev, card_line, "MultiRobotPuzzle-v3", "fused")
 
+    print("== 7. train: PPO on v0", flush=True)
+    train_launches = run_training(card_line)
+    print("== 8. eval of the committed v0 policy", flush=True)
+    run_eval(card_line)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -622,7 +823,8 @@ def main() -> int:
         dict(common, name="step_fused",
              source="gym_puzzles_tpu_torch/csrc/step_fused.cu",
              replaces="gym_puzzles_tpu/engine/step_pallas.py:539",
-             launches=fused_run["launches"], max_abs_err=spawn_diff["max"],
+             launches=fused_run["launches"], train_launches=train_launches,
+             max_abs_err=spawn_diff["max"],
              ms=v0["fused_ms"], plain_ms=plain_ms,
              bound_ms=v0["fused_bound"]["ms"], bound_by=v0["fused_bound"]["by"]),
         dict(common, name="solve_contacts",

@@ -12,6 +12,13 @@ packages' ``solve_contacts`` can be given the same constraints.
 
 JAX PRNG keys are not carried: the port's ``VectorEnv`` owns a
 ``torch.Generator``.
+
+Policies go across too: :func:`actor_critic_from_numpy` reads the flax
+``ActorCritic`` params (``Dense_0 .. Dense_{n+1}`` with ``kernel`` [in, out]
+and ``bias``, plus ``log_std``), and :func:`policy_to_npz` /
+:func:`policy_from_npz` write and read the slim policy file (params in that
+layout, the normalizer moments, ``timesteps``) that ``train/export.py``
+writes and ``gym_puzzles_tpu_torch/policies/`` holds.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from gym_puzzles_tpu_torch.engine.narrowphase import Manifold
 from gym_puzzles_tpu_torch.engine.solver import VelocityConstraints
 from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, ShapeTable
 from gym_puzzles_tpu_torch.envs.common import EnvState
+from gym_puzzles_tpu_torch.train.networks import ActorCritic
+from gym_puzzles_tpu_torch.train.normalize import NormalizerState, RunningMeanStd
 
 # dataclass-valued fields of the state tree
 _NESTED = {
@@ -75,3 +84,106 @@ def state_to_numpy(state) -> dict:
 def shape_table_to_numpy(table: ShapeTable) -> dict:
     """Every field of a static table as a numpy array (counts as 0-d)."""
     return {f.name: np.asarray(getattr(table, f.name)) for f in dataclasses.fields(table)}
+
+
+# --------------------------------------------------------------------------
+# policies
+# --------------------------------------------------------------------------
+
+
+def actor_critic_from_numpy(params, device=None) -> ActorCritic:
+    """An :class:`ActorCritic` holding the flax params ``{Dense_0, ...,
+    Dense_{n+1}, log_std}`` (or the variables dict ``{"params": ...}``):
+    ``Dense_0 .. Dense_{n-1}`` the trunk, ``Dense_n`` the mean head,
+    ``Dense_{n+1}`` the value head; each ``kernel`` [in, out] becomes
+    ``nn.Linear.weight`` [out, in]."""
+    params = params.get("params", params)
+    n = sum(1 for k in params if k.startswith("Dense_")) - 2
+    kernel = lambda i: np.asarray(params[f"Dense_{i}"]["kernel"], np.float32)  # noqa: E731
+    hidden = [kernel(i).shape[1] for i in range(n)]
+    net = ActorCritic(kernel(0).shape[0], kernel(n).shape[1], hidden)
+    layers = list(net.trunk) + [net.mean, net.value]
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            layer.weight.copy_(f32(kernel(i).T))
+            layer.bias.copy_(f32(params[f"Dense_{i}"]["bias"]))
+        net.log_std.copy_(f32(params["log_std"]))
+    return net.to(device)
+
+
+def params_to_numpy(state_dict) -> dict:
+    """An :class:`ActorCritic` state_dict in the flax params layout
+    (inverse of :func:`actor_critic_from_numpy`)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    n = sum(1 for k in sd if k.startswith("trunk.") and k.endswith(".weight"))
+    names = [f"trunk.{i}" for i in range(n)] + ["mean", "value"]
+    out = {f"Dense_{i}": {"kernel": sd[f"{name}.weight"].T.copy(), "bias": sd[f"{name}.bias"]}
+           for i, name in enumerate(names)}
+    out["log_std"] = sd["log_std"]
+    return out
+
+
+def rms_from_numpy(tree, device=None) -> RunningMeanStd:
+    """A :class:`RunningMeanStd` from ``{mean, var, count}`` numpy arrays."""
+    return RunningMeanStd(**{k: torch.tensor(np.asarray(tree[k], np.float32), device=device)
+                             for k in ("mean", "var", "count")})
+
+
+def normalizer_from_numpy(tree, device=None) -> NormalizerState:
+    """The port's :class:`NormalizerState` from the JAX package's, as nested
+    dicts of numpy arrays (``obs_rms``, ``ret_rms``, ``returns``, ``gamma``)."""
+    return NormalizerState(
+        obs_rms=rms_from_numpy(tree["obs_rms"], device),
+        ret_rms=rms_from_numpy(tree["ret_rms"], device),
+        returns=torch.tensor(np.asarray(tree["returns"], np.float32), device=device),
+        gamma=float(np.float32(tree["gamma"])),
+    )
+
+
+@dataclasses.dataclass
+class Policy:
+    """What evaluation needs of a trained policy: the network, the frozen
+    normalizer moments and the env steps it was trained for."""
+
+    net: ActorCritic
+    obs_rms: RunningMeanStd
+    ret_rms: RunningMeanStd
+    timesteps: int
+
+
+def policy_to_npz(path, params, normalizer, timesteps: int):
+    """Write the slim policy file: ``params/...`` in the flax layout of
+    :func:`params_to_numpy`, ``normalizer/{obs_rms,ret_rms}/{mean,
+    var,count}`` and ``timesteps`` (int64), all numpy."""
+    flat = {"timesteps": np.int64(timesteps)}
+
+    def put(prefix, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(f"{prefix}{k}/", v)
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+
+    put("params/", params.get("params", params))
+    put("normalizer/", {r: {k: np.asarray(normalizer[r][k], np.float32)
+                            for k in ("mean", "var", "count")}
+                        for r in ("obs_rms", "ret_rms")})
+    np.savez(path, **flat)
+
+
+def policy_from_npz(path, device=None) -> Policy:
+    """Read a file written by :func:`policy_to_npz`."""
+    with np.load(path) as f:
+        tree = {}
+        for key in f.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = f[key]
+    norm = tree["normalizer"]
+    return Policy(net=actor_critic_from_numpy(tree["params"], device),
+                  obs_rms=rms_from_numpy(norm["obs_rms"], device),
+                  ret_rms=rms_from_numpy(norm["ret_rms"], device),
+                  timesteps=int(tree["timesteps"]))

@@ -8,8 +8,9 @@ Mutable-through-methods state of the reference (``set_reward_params``,
 ``update_params``, ``update_goal``, 00.py:231-246) becomes the
 :class:`RewardParams` dataclass passed into every step.  Its fields are
 Python floats holding float32-rounded values, so they multiply tensors
-exactly as the JAX package's numpy float32 leaves do.  The curriculum
-methods come with the trainer (ROADMAP.md Queue 1 item 5).
+exactly as the JAX package's numpy float32 leaves do, and the curriculum
+methods do their arithmetic in ``np.float32`` so that their results equal
+the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -108,6 +109,21 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _ftz(x) -> np.float32:
+    """``x`` as float32 with a subnormal flushed to (signed) zero, as XLA on
+    the CPU flushes the results of its float32 arithmetic."""
+    x = np.float32(x)
+    return np.float32(0.0) * np.sign(x) if abs(x) < np.finfo(np.float32).tiny else x
+
+
+# the base rewards and the shaped copies that update_params derives from them
+_SHAPED = (
+    ("out_of_bounds_penalty", "shaped_bounds_penalty"),
+    ("blk_out_of_bounds_penalty", "shaped_blk_bounds_penalty"),
+    ("puzzle_complete_reward", "shaped_puzzle_reward"),
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class RewardParams:
     """Reward/curriculum parameters.
@@ -157,6 +173,54 @@ class RewardParams:
             shaped_puzzle_reward=_f32(w["comp"]),
             scaled_epsilon=_f32(w["eps"]),
         )
+
+    # Reference set_reward_params kwarg name -> RewardParams field
+    # (00.py:231-239, 02.py:216-225, core.py:149-155).
+    REFERENCE_WEIGHT_NAMES = {
+        "agentDelta": "weight_delta_agent",
+        "agentDistance": "weight_agent_dist",
+        "blockDelta": "weight_delta_block",
+        "blockDistance": "weight_blk_dist",
+        "puzzleComp": "puzzle_complete_reward",
+        "outOfBounds": "out_of_bounds_penalty",
+        "blkOutOfBounds": "blk_out_of_bounds_penalty",
+    }
+
+    def replace(self, **changes) -> "RewardParams":
+        return dataclasses.replace(self, **changes)
+
+    def set_reward_params(self, **kw) -> "RewardParams":
+        """Reference ``set_reward_params`` (00.py:231-239): override reward
+        weights by their reference kwarg names (or field names).  A base
+        penalty or reward also resets its ``shaped_*`` copy unless that is
+        given too.  An unknown name raises ``TypeError``."""
+        fields = {f.name for f in dataclasses.fields(self)}
+        repl = {}
+        for name, value in kw.items():
+            field = self.REFERENCE_WEIGHT_NAMES.get(name, name)
+            if field not in fields:
+                raise TypeError(f"unknown reward param {name!r}")
+            repl[field] = _f32(value)
+        for base, shaped in _SHAPED:
+            if base in repl and shaped not in repl:
+                repl[shaped] = repl[base]
+        return self.replace(**repl)
+
+    def update_params(self, timestep, decay) -> "RewardParams":
+        """Reference ``update_params`` (00.py:241-243, 02.py:227-230): the
+        shaped penalties and reward are the bases scaled by
+        ``decay ** (-timestep)``, with ``timestep`` cast to float32."""
+        with np.errstate(over="ignore"):  # an overflow is inf, as in JAX
+            k = _ftz(np.float32(decay) ** -np.float32(int(timestep)))
+        return self.replace(**{shaped: float(_ftz(np.float32(getattr(self, base)) * k))
+                               for base, shaped in _SHAPED})
+
+    def update_goal(self, epoch, nb_epochs, base_epsilon) -> "RewardParams":
+        """Reference ``update_goal`` (00.py:245-246): the goal epsilon
+        shrinks from twice ``base_epsilon`` to ``base_epsilon`` over
+        ``nb_epochs``."""
+        e = np.float32(epoch) / np.float32(nb_epochs)
+        return self.replace(scaled_epsilon=float(np.float32(base_epsilon) * (np.float32(2.0) - e)))
 
 
 # Registered variants (gym_puzzles/__init__.py:3-36; dims are the empirical

@@ -1,0 +1,119 @@
+"""Checkpoint and resume (port of ``gym_puzzles_tpu/train/checkpoint.py``).
+
+The reference checkpoints the SB3 model zip and the VecNormalize statistics
+(train/train.py:148-149).  Here the whole :class:`TrainState` -- params,
+Adam state, normalizer, env batch, both generators' states, episode
+statistics, env params and hparams -- is one file, ``<dir>/<step>/state.pt``
+written by ``torch.save`` as nested dicts of tensors and numbers, so a
+restore continues the exact trajectory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+
+import torch
+
+from gym_puzzles_tpu_torch import convert
+
+STATE_FILE = "state.pt"
+
+
+def step_count(timesteps) -> int:
+    """The env steps of a TrainState's counter as a Python int.  The counter
+    is int64, so it stays exact and positive past 2^31 (the JAX package's
+    int32 counter wraps there)."""
+    return int(timesteps)
+
+
+def to_tree(x):
+    """Dataclasses and generators -> dicts, generator states and tensors."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: to_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: to_tree(v) for k, v in x.items()}
+    if isinstance(x, torch.Generator):
+        return x.get_state()
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    return x
+
+
+def from_tree(template, tree):
+    """Inverse of :func:`to_tree` onto ``template``'s classes and devices;
+    a generator of the template is set to the saved state in place."""
+    if dataclasses.is_dataclass(template):
+        return type(template)(**{f.name: from_tree(getattr(template, f.name), tree[f.name])
+                                 for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        if set(template) != set(tree):
+            raise ValueError(f"checkpoint keys {sorted(tree)} do not match {sorted(template)}")
+        return {k: from_tree(template[k], tree[k]) for k in template}
+    if isinstance(template, torch.Generator):
+        template.set_state(tree)
+        return template
+    if isinstance(template, torch.Tensor):
+        if tree.shape != template.shape or tree.dtype != template.dtype:
+            raise ValueError(f"checkpoint tensor {tuple(tree.shape)} {tree.dtype} does not "
+                             f"match {tuple(template.shape)} {template.dtype}")
+        return tree.to(template.device)
+    return tree
+
+
+def load(path, step: int | None = None) -> dict:
+    """The saved tree (nested dicts of CPU tensors and numbers) at ``step``
+    (default: the latest)."""
+    path = pathlib.Path(path).absolute()
+    if step is None:
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+    return torch.load(path / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
+
+
+def save(path, train_state, step: int):
+    """Write ``train_state`` to ``<path>/<step>/state.pt``."""
+    out = pathlib.Path(path).absolute() / str(int(step))
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save(to_tree(train_state), out / STATE_FILE)
+
+
+def restore(path, template, step: int | None = None):
+    """The TrainState saved at ``step`` (default: the latest), onto a
+    ``template`` of the same shapes (e.g. ``PPO.init_state()``).  The
+    template's generators -- the env's among them -- take the saved states."""
+    return from_tree(template, load(path, step))
+
+
+def restore_policy(path, template, step: int | None = None):
+    """Only the policy: params, the obs/ret normalizer moments and
+    ``timesteps``, grafted into a ``template`` built at any env batch size
+    (the analogue of the reference's PPO.load + VecNormalize.load with
+    training=False, test.py:66-74).  ``path`` is a checkpoint directory or
+    a policy ``.npz`` (``train/export.py``)."""
+    dev = template.timesteps.device
+    if str(path).endswith(".npz"):
+        pol = convert.policy_from_npz(path)
+        tree = {"params": pol.net.state_dict(), "timesteps": pol.timesteps,
+                "normalizer": {"obs_rms": to_tree(pol.obs_rms),
+                               "ret_rms": to_tree(pol.ret_rms)}}
+    else:
+        tree = load(path, step)
+    norm = template.normalizer
+    return template.replace(
+        params=from_tree(template.params, tree["params"]),
+        normalizer=norm.replace(obs_rms=from_tree(norm.obs_rms, tree["normalizer"]["obs_rms"]),
+                                ret_rms=from_tree(norm.ret_rms, tree["normalizer"]["ret_rms"])),
+        timesteps=torch.tensor(int(tree["timesteps"]), dtype=torch.int64, device=dev),
+    )
+
+
+def latest_step(path) -> int | None:
+    """The largest step saved under ``path``, or None."""
+    path = pathlib.Path(path).absolute()
+    if not path.is_dir():
+        return None
+    steps = [int(d.name) for d in path.iterdir()
+             if d.name.isdigit() and (d / STATE_FILE).is_file()]
+    return max(steps, default=None)

@@ -1,0 +1,194 @@
+"""Policy evaluation (port of ``gym_puzzles_tpu/train/evaluate.py``, flat
+observations): the rebuild of the reference's train/test.py.
+
+The policy runs with its normalizer frozen (VecNormalize training=False,
+test.py:66-68), deterministic (the mean action) or stochastic, in a
+dedicated eval env: no autoreset, the reference's reset (one random step),
+the registered episode limit and, unless overridden, the reference's 180/60
+solver iterations.  The eval env always rides the fused tick kernel
+(``backend='fused'``), which takes any batch size.  Video recording and the
+pixel policy come with the pixel pipeline.
+
+Completions are counted by ``length < max_steps``, never from the returns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from gym_puzzles_tpu_torch.train import normalize as nrm
+
+
+def make_eval_env(env_id: str, n: int, device, velocity_iters=None, position_iters=None):
+    """Eval env of ``n`` lanes: auto_reset off, reference reset, fused tick."""
+    from gym_puzzles_tpu_torch.api.registry import make
+
+    # stderr, so that `evaluate ... > out.json` stays JSON
+    print(f"# eval env: {env_id} n={n} backend=fused", file=sys.stderr)
+    return make(env_id, num_envs=n, auto_reset=False, reset_mode="reference",
+                backend="fused", device=device, velocity_iters=velocity_iters,
+                position_iters=position_iters)
+
+
+def policy_action(algo, params, norm, obs, deterministic: bool, generator=None):
+    """The policy's action on raw ``obs`` [E, obs_dim] with the normalizer
+    ``norm`` frozen, clipped to [-1, 1]: the mean, or with ``deterministic``
+    off a sample drawing its noise from ``generator``."""
+    if algo.cfg.normalize:
+        obs = nrm.normalize_obs(norm, obs, update=False)[1]
+    mean, log_std, _value = algo.apply(params, obs)
+    if not deterministic:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+        mean = mean + torch.exp(log_std) * noise
+    return torch.clamp(mean, -1.0, 1.0)
+
+
+def _seed(seed: int, n: int) -> int:
+    return int(np.random.SeedSequence([seed, n]).generate_state(1)[0])
+
+
+@torch.no_grad()
+def evaluate_policy(algo, train_state, n_episodes: int = 10, deterministic: bool = True,
+                    max_steps: int | None = None, seed: int = 0,
+                    velocity_iters: int | None = None, position_iters: int | None = None):
+    """-> (mean_return, std_return, returns list): ``n_episodes`` episodes one
+    after another in a one-lane env, checking ``done`` on the host each step."""
+    env = make_eval_env(algo.cfg.env_id, 1, algo.device, velocity_iters, position_iters)
+    params = env.default_params()
+    max_steps = max_steps or env.cfg.max_episode_steps
+    gen = torch.Generator(device=algo.device).manual_seed(_seed(seed, 0))
+    returns = []
+    for ep in range(n_episodes):
+        state, obs = env.reset(seed=_seed(seed, ep + 1), params=params)
+        total = 0.0
+        for _t in range(max_steps):
+            action = policy_action(algo, train_state.params, train_state.normalizer, obs,
+                          deterministic, gen)
+            state, obs, reward, done, _ = env.step(state, action, params)
+            total += float(reward[0])
+            if bool(done[0]):
+                break
+        returns.append(total)
+    return float(np.mean(returns)), float(np.std(returns)), returns
+
+
+@torch.no_grad()
+def evaluate_policy_batched(algo, train_state, n_episodes: int = 64,
+                            deterministic: bool = True, seed: int = 0,
+                            max_steps: int | None = None, env_params=None,
+                            chunk: int = 200, velocity_iters: int | None = None,
+                            position_iters: int | None = None):
+    """One episode per env lane, all on the device.  Steps run in
+    ``chunk``-step segments with one host check per segment for "every lane
+    finished"; a lane's reward and length stop counting once it is done.
+
+    -> (mean_return, std_return, returns list, lengths list) over
+    ``n_episodes`` episodes; ``lengths`` are the steps until done
+    (``max_steps`` for a timeout)."""
+    env = make_eval_env(algo.cfg.env_id, n_episodes, algo.device, velocity_iters,
+                        position_iters)
+    params = env_params if env_params is not None else env.default_params()
+    max_steps = max_steps or env.cfg.max_episode_steps
+    chunk = min(chunk, max_steps)
+    dev = algo.device
+    gen = torch.Generator(device=dev).manual_seed(_seed(seed, 0))
+    state, obs = env.reset(seed=_seed(seed, 1), params=params)
+    finished = torch.zeros((n_episodes,), dtype=torch.bool, device=dev)
+    total = torch.zeros((n_episodes,), dtype=torch.float32, device=dev)
+    length = torch.zeros((n_episodes,), dtype=torch.int32, device=dev)
+    remaining = max_steps
+    while remaining > 0:
+        n = min(chunk, remaining)  # the last chunk keeps max_steps exact
+        for _ in range(n):
+            action = policy_action(algo, train_state.params, train_state.normalizer, obs,
+                          deterministic, gen)
+            state, obs, reward, done, _ = env.step(state, action, params)
+            total = total + torch.where(finished, 0.0, reward)
+            length = length + (~finished).int()
+            finished = finished | done
+        remaining -= n
+        if bool(finished.all()):
+            break
+    totals = total.cpu().numpy()
+    return (float(totals.mean()), float(totals.std()), totals.tolist(),
+            length.cpu().tolist())
+
+
+def main(argv=None):
+    """``python -m gym_puzzles_tpu_torch.train.evaluate``: restore a policy
+    (a checkpoint directory or a policy ``.npz``), evaluate N episodes and
+    print one JSON line (returns, lengths, completions = episodes shorter
+    than the step limit)."""
+    from gym_puzzles_tpu_torch.train import checkpoint as ckpt
+    from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
+
+    p = argparse.ArgumentParser(description="Evaluate a trained policy")
+    p.add_argument("--checkpoint", required=True, type=str,
+                   help="checkpoint directory written by the trainer CLI, or a policy .npz")
+    p.add_argument("--config", default=None, type=str, help="JSON config path")
+    p.add_argument("--env", default=None, type=str, help="env id override")
+    p.add_argument("--n_episodes", default=10, type=int)
+    p.add_argument("--max_steps", default=None, type=int,
+                   help="episode step cap (default: the env's registered max_episode_steps)")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--stochastic", action="store_true",
+                   help="sample actions instead of the deterministic mean")
+    p.add_argument("--batched", action="store_true",
+                   help="one episode per env lane on the device")
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device (default cuda; 'cpu' runs the plain engine)")
+    p.add_argument("--velocity_iters", default=None, type=int,
+                   help="solver velocity iterations of the eval env (default: the "
+                        "reference's 180; fewer only for smoke runs)")
+    p.add_argument("--position_iters", default=None, type=int,
+                   help="solver position iterations of the eval env (default 60)")
+    args = p.parse_args(argv)
+
+    config = {}
+    if args.config:
+        with open(args.config) as f:
+            config = json.load(f)
+    overrides = {"n_envs": 1, "n_steps": 2, "batch_size": 2, "n_epochs": 1}
+    if args.env:
+        overrides["env_id"] = args.env
+    cfg = PPOConfig.from_reference_json(config, **overrides)
+    algo = PPO(cfg, device=args.device)
+    state = ckpt.restore_policy(args.checkpoint, algo.init_state(args.seed))
+    iters = dict(velocity_iters=args.velocity_iters, position_iters=args.position_iters)
+
+    lengths = None
+    if args.batched:
+        mean, std, returns, lengths = evaluate_policy_batched(
+            algo, state, n_episodes=args.n_episodes, seed=args.seed,
+            max_steps=args.max_steps, deterministic=not args.stochastic, **iters)
+    else:
+        mean, std, returns = evaluate_policy(
+            algo, state, n_episodes=args.n_episodes, seed=args.seed,
+            max_steps=args.max_steps, deterministic=not args.stochastic, **iters)
+    from gym_puzzles_tpu_torch.envs.config import VARIANTS
+
+    ecfg = VARIANTS[cfg.env_id]
+    max_steps = args.max_steps or ecfg.max_episode_steps
+    row = {"env_id": cfg.env_id, "checkpoint": args.checkpoint,
+           "trained_timesteps": ckpt.step_count(state.timesteps),
+           "device": (torch.cuda.get_device_name(algo.device) if algo.device.type == "cuda"
+                      else str(algo.device)),
+           "eval_backend": "fused", "batched": args.batched,
+           "eval_solver_iters": [args.velocity_iters or ecfg.velocity_iters,
+                                 args.position_iters or ecfg.position_iters],
+           "max_steps": max_steps, "mean_return": mean, "std_return": std,
+           "returns": returns}
+    if lengths is not None:
+        row["lengths"] = lengths
+        row["completions"] = sum(1 for n in lengths if n < max_steps)
+    print(json.dumps(row))
+    return mean, std, returns
+
+
+if __name__ == "__main__":
+    main()

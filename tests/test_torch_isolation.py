@@ -1,7 +1,8 @@
 """The port stands alone: importing ``gym_puzzles_tpu_torch`` (every module
-that holds a kernel's wrapper too) and stepping each env family on the CPU
-through both backends loads neither JAX, flax nor the JAX package, and
-without a CUDA device ``make`` refuses to pick a device on its own."""
+that holds a kernel's wrapper, and the learner in ``train``, too), stepping
+each env family on the CPU through both backends and running one PPO update
+load neither JAX, flax, optax, orbax nor the JAX package, and without a CUDA
+device ``make`` refuses to pick a device on its own."""
 
 import json
 import subprocess
@@ -25,6 +26,10 @@ import gym_puzzles_tpu_torch.convert, gym_puzzles_tpu_torch.profile_step
 import gym_puzzles_tpu_torch.bench_kernels
 import gym_puzzles_tpu_torch.engine.solver_cuda, gym_puzzles_tpu_torch.engine.step_cuda
 import gym_puzzles_tpu_torch.engine._cuda_build
+import gym_puzzles_tpu_torch.train.checkpoint, gym_puzzles_tpu_torch.train.cli
+import gym_puzzles_tpu_torch.train.evaluate, gym_puzzles_tpu_torch.train.export
+import gym_puzzles_tpu_torch.train.networks, gym_puzzles_tpu_torch.train.normalize
+from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),
                         ("MultiRobotPuzzle-v2", "pallas"), ("MultiRobotPuzzleHeavy-v2", "fused"),
                         ("MultiRobotPuzzle-v3", "fused")):
@@ -33,6 +38,10 @@ for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0"
     state, obs = env.reset(seed=0)
     state, obs, reward, done, info = env.step(state, torch.zeros(4, env.cfg.act_dim))
     assert obs.shape == (4, env.cfg.obs_dim) and bool(torch.isfinite(obs).all())
+algo = PPO(PPOConfig(n_envs=2, n_steps=2, batch_size=2, n_epochs=1, velocity_iters=2,
+                     position_iters=1), device="cpu")
+ts, metrics = algo.train_step(algo.init_state())
+assert int(ts.timesteps) == 4 and bool(torch.isfinite(metrics["loss"]))
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -43,7 +52,8 @@ def test_port_imports_no_jax():
                          text=True, timeout=120, check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     leaked = [m for m in mods
-              if m.split(".")[0] in ("jax", "jaxlib", "flax", "gym_puzzles_tpu")]
+              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                     "gym_puzzles_tpu")]
     assert not leaked, leaked
 
 

@@ -5,6 +5,7 @@ states."""
 
 import dataclasses
 import functools
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -241,3 +242,30 @@ def two_island_tick():
     act = torch.zeros(logic.cfg.act_dim, E)
     bodies, force, torque, wake = logic._control(state, act)
     return logic.layout, (logic.layout.table, bodies, state.contacts, force, torque, wake)
+
+
+# --------------------------------------------------------------------------
+# the committed policy: the JAX package's slim v0 checkpoint as the port's
+# policy file
+# --------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent.parent
+V0_POLICY_CHECKPOINT = ROOT / "checkpoints" / "v0_r4" / "MultiRobotPuzzle-v0"
+V0_POLICY_NPZ = ROOT / "gym_puzzles_tpu_torch" / "policies" / "MultiRobotPuzzle-v0_r4.npz"
+
+
+def export_jax_policy(checkpoint=V0_POLICY_CHECKPOINT, out=V0_POLICY_NPZ):
+    """Write the policy of a JAX package checkpoint (full or slim) as the
+    port's policy file, through the JAX package's own reader.  From the
+    repo root:
+
+        JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests'); \\
+            import torch_port_helpers as h; h.export_jax_policy()"
+    """
+    from gym_puzzles_tpu.train import checkpoint as jckpt
+    from gym_puzzles_tpu.train.export import load_policy_subtree
+
+    tree, _step = load_policy_subtree(checkpoint)
+    convert.policy_to_npz(out, tree["params"], tree["normalizer"],
+                          jckpt.step_count(tree["timesteps"]))
+    return tree
