@@ -42,17 +42,34 @@ Phases (each raises on failure; the script exits non-zero on any):
    ``evaluate_policy_batched`` (fused): completion share (length < 2000) in
    [0.82, 0.93] and mean return in [5190, 6800], the bands around the JAX
    package's record for this policy (337/384, mean 5992);
-6. (run after 7 and 8) both kernels' times per variant, beside the mean and
-   warp-max live pairs per env of the inputs timed (the sweeps visit only
-   those), and one JSON line describing each ported kernel (times, bound,
-   launches);
-9. last line: ``{"ok": true, "device": {...}}``.
+9. pixels (the image pipeline, whose physics is the fused tick kernel at
+   frameskip 4): the on-device renderer on the card against the same
+   renderer on the CPU (4096 v0 spawns, human vision; 1024 v2 spawns, agent
+   vision; 1024 v3 spawns; downsample 4), share of equal pixels >= 0.999;
+   CNN PPO at the JAX package's pixel recipe (256 image envs, fused, 60/20,
+   n_steps 32, batch 2048, 2 epochs, seed 0) through ``train_and_resume`` as
+   in phase 7 with cuDNN held deterministic: 384 launches of the fused tick
+   kernel in 3 updates and none of the solve kernel, the resumed update
+   bitwise, one more update split into physics, render, policy, GAE and
+   update; the policy those updates produce: deterministic actions on the
+   obs of 256 reference resets on the card against the CPU, then 256
+   deterministic episodes of at most 100 steps at 180/60 through
+   ``evaluate_policy_batched`` (4 launches per env step); kernel A at the
+   pixel path's shape (256 v0 spawns, 60/20 and 180/60) against
+   ``world.step`` on the same inputs (``SPAWN_LIMITS``) and incremental
+   against exact trig, then its time per launch beside its bound;
+6. (run after 7, 8 and 9) both kernels' times per variant, beside the mean
+   and warp-max live pairs per env of the inputs timed (the sweeps visit
+   only those), and one JSON line describing each ported kernel (times,
+   bound, launches);
+last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,6 +86,7 @@ from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
+from gym_puzzles_tpu_torch.render.device import make_device_renderer
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import evaluate
 from gym_puzzles_tpu_torch.train import normalize as nrm
@@ -134,6 +152,25 @@ EVAL_MAX_STEPS = 2000
 COMPLETION_BAND = (0.82, 0.93)
 RETURN_BAND = (5190.0, 6800.0)
 ACTION_TOL = 1e-5
+# phase 9: the JAX package's pixel recipe (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl
+# line 1; the rest as PPOConfig's defaults), seed 0
+CNN_CONFIG = dict(env_id=ENV_ID, policy="cnn", n_envs=256, n_steps=32, batch_size=2048,
+                  n_epochs=2, learning_rate=2.5e-4, ent_coef=0.005, target_kl=0.01,
+                  normalize=True, env_backend="fused", velocity_iters=60, position_iters=20,
+                  seed=0)
+CNN_TIMED_UPDATES = 1  # after the resumed update 3
+# renderer on the card against the CPU: spawns and mode per variant, downsample 4
+RENDER_CASES = {"MultiRobotPuzzle-v0": (4096, "human_vision"),
+                "MultiRobotPuzzle-v2": (1024, "agent_vision"),
+                "MultiRobotPuzzle-v3": (1024, "human_vision")}
+RENDER_EQUAL_SHARE = 0.999
+CNN_EVAL_EPISODES = 256
+CNN_EVAL_MAX_STEPS = 100
+# the pixel policy's deterministic actions, card (cuDNN) against CPU (oneDNN),
+# both with bfloat16 convolutions: about ten times the difference measured on
+# an H100 (2.4e-6, the policy of the 3 recipe updates at seed 0)
+CNN_ACTION_TOL = 3e-5
+PIXEL_ITERS = ((60, 20), (VI, PI))  # training and eval solver iterations
 
 
 def card() -> str:
@@ -326,18 +363,19 @@ def spawn_diffs(name, got, want, in_contact) -> dict:
     return out
 
 
-def check_spawns(dev, E, seed, env_id=ENV_ID) -> tuple[dict, float]:
-    """One 180/60 tick of E random spawns, fused kernel against plain.
-    Returns (differences, plain ms)."""
+def check_spawns(dev, E, seed, env_id=ENV_ID, vel_iters=VI,
+                 pos_iters=PI) -> tuple[dict, float]:
+    """One tick of E random spawns (180/60 unless given), fused kernel
+    against plain.  Returns (differences, plain ms)."""
     table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id)
-    args = (table, bodies, contacts, force, torque, wake, DT, VI, PI)
+    args = (table, bodies, contacts, force, torque, wake, DT, vel_iters, pos_iters)
     bk, ck, _ = step_cuda.step_fused(*args, incremental_trig=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bp, cp, _ = world.step(*args)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    name = f"fused, {env_id} spawns E={E} 1 tick {VI}/{PI}"
+    name = f"fused, {env_id} spawns E={E} 1 tick {vel_iters}/{pos_iters}"
     out = spawn_diffs(name, (bk.pos, bk.angle, ck.normal_impulse),
                       (bp.pos, bp.angle, cp.normal_impulse), cp.touching.any(dim=0))
     if not torch.equal(bk.awake, bp.awake):
@@ -611,23 +649,17 @@ def tree_diff(a, b, path="") -> list[str]:
     return [] if a == b else [path]
 
 
-def run_training(card_line) -> int:
-    """Phase 7: ``TRAIN_UPDATES`` PPO updates on v0 at 4096 envs, fused, with
-    the launch counts set to 0 just before and read just after; a save after
+def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
+    """``TRAIN_UPDATES`` updates of the learner ``algo_fn()`` builds, with the
+    launch counts set to 0 just before and read just after; a save after
     update 2 restored into a fresh learner must reproduce update 3 bit for
-    bit; then ``TIMED_UPDATES`` updates split by part.  Returns the fused
-    kernel's launches in the counted updates."""
-    cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES)
-    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("float32 matmuls must keep full precision (TF32 off)")
-    algo = PPO(cfg)
-    on_card(algo, "PPO")
+    bit; then ``timed_updates`` more updates, each split by part (the
+    resumed one is timed too).  Returns (the fresh learner, its state, the
+    launches of each kernel in the counted updates)."""
+    algo = algo_fn()
+    on_card(algo, what)
+    cfg = algo.cfg
     per_update = cfg.n_steps * cfg.n_envs
-    print(f"  {cfg.env_id} n_envs {cfg.n_envs} n_steps {cfg.n_steps} batch {cfg.batch_size} "
-          f"epochs {cfg.n_epochs} lr {cfg.learning_rate} target_kl {cfg.target_kl} "
-          f"net {cfg.net_arch} backend {cfg.env_backend} "
-          f"{algo.env.cfg.velocity_iters}/{algo.env.cfg.position_iters}  [{card_line}]",
-          flush=True)
     ts = algo.init_state()
     params0 = {k: v.clone() for k, v in ts.params.items()}
     torch.cuda.synchronize()
@@ -651,18 +683,18 @@ def run_training(card_line) -> int:
             bad = [k for k, v in m.items() if k != "ep_rew_mean" and isinstance(v, float)
                    and not np.isfinite(v)]
             if bad:
-                raise AssertionError(f"train: non-finite metrics {bad}")
+                raise AssertionError(f"{what}: non-finite metrics {bad}")
         launches = {name: step_cuda.launch_count(name) for name in ("step_fused",
                                                                      "solve_contacts")}
         want = TRAIN_UPDATES * cfg.n_steps * algo.env.cfg.frameskip
         if launches != {"step_fused": want, "solve_contacts": 0}:
-            raise AssertionError(f"train: launches {launches}, expected {want} of step_fused "
+            raise AssertionError(f"{what}: launches {launches}, expected {want} of step_fused "
                                  "and none of solve_contacts")
         if ts.timesteps.dtype != torch.int64 or int(ts.timesteps) != TRAIN_UPDATES * per_update:
-            raise AssertionError(f"train: timesteps {ts.timesteps!r}")
+            raise AssertionError(f"{what}: timesteps {ts.timesteps!r}")
         moved = sum(int((ts.params[k] != params0[k]).sum()) for k in params0)
         if not moved:
-            raise AssertionError("train: params did not move")
+            raise AssertionError(f"{what}: params did not move")
         rate = TRAIN_UPDATES * per_update / sum(walls)
         print(f"  {TRAIN_UPDATES} updates, {TRAIN_UPDATES * per_update} env steps in "
               f"{sum(walls):.3f} s: {rate:,.0f} env-steps/s including the learner "
@@ -671,19 +703,19 @@ def run_training(card_line) -> int:
               f"{sum(v.numel() for v in params0.values())} params moved  [{card_line}]",
               flush=True)
 
-        fresh = PPO(cfg)
+        fresh = algo_fn()
         rs = ckpt.restore(tmp, fresh.init_state(), saved_at)
     timer = PhaseTimer(fresh.device)
     rs, rmetrics = fresh.train_step(rs, timer=timer)
     diff = (tree_diff(ckpt.to_tree(rs), ckpt.to_tree(ts), "state")
             + tree_diff(ckpt.to_tree(rmetrics), ckpt.to_tree(metrics), "metrics"))
     if diff:
-        raise AssertionError(f"train: the resumed update {TRAIN_UPDATES} differs in {diff}")
+        raise AssertionError(f"{what}: the resumed update {TRAIN_UPDATES} differs in {diff}")
     print(f"  resume: saved after update {TRAIN_UPDATES - 1} (step {saved_at}), restored into a "
           f"fresh learner: update {TRAIN_UPDATES} equal bit for bit (params, Adam state, "
           f"normalizer, env state, generators, metrics)  [{card_line}]", flush=True)
     splits = [timer.seconds]
-    for _ in range(TIMED_UPDATES):
+    for _ in range(timed_updates):
         timer = PhaseTimer(fresh.device)
         rs, _ = fresh.train_step(rs, timer=timer)
         splits.append(timer.seconds)
@@ -692,6 +724,21 @@ def run_training(card_line) -> int:
         print(f"  timed update {TRAIN_UPDATES + k}: {total:.3f} s = "
               + ", ".join(f"{name} {sec:.3f} s ({sec / total:.1%})" for name, sec in sp.items())
               + f"  [{card_line}]", flush=True)
+    return fresh, rs, launches
+
+
+def run_training(card_line) -> int:
+    """Phase 7: PPO on v0 at 4096 envs, fused, the MLP recipe, through
+    :func:`train_and_resume`.  Returns the fused kernel's launches in the
+    counted updates."""
+    cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES)
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must keep full precision (TF32 off)")
+    print(f"  {cfg.env_id} n_envs {cfg.n_envs} n_steps {cfg.n_steps} batch {cfg.batch_size} "
+          f"epochs {cfg.n_epochs} lr {cfg.learning_rate} target_kl {cfg.target_kl} "
+          f"net {cfg.net_arch} backend {cfg.env_backend} "
+          f"{cfg.velocity_iters or VI}/{cfg.position_iters or PI}  [{card_line}]", flush=True)
+    _algo, _ts, launches = train_and_resume(lambda: PPO(cfg), card_line, TIMED_UPDATES, "train")
     return launches["step_fused"]
 
 
@@ -743,6 +790,163 @@ def run_eval(card_line):
     if not (COMPLETION_BAND[0] <= share <= COMPLETION_BAND[1]
             and RETURN_BAND[0] <= ret_mean <= RETURN_BAND[1]):
         raise AssertionError("eval: the committed policy left its bands")
+
+
+def tree_map(fn, x):
+    """``fn`` on every tensor of a dataclass tree (other leaves kept)."""
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: tree_map(fn, getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    return fn(x) if isinstance(x, torch.Tensor) else x
+
+
+def check_renderer(dev, card_line) -> float:
+    """The renderer on the card against the same renderer on the CPU, on
+    the same spawns (``RENDER_CASES``, downsample 4): the share of equal
+    pixels over all frames must reach ``RENDER_EQUAL_SHARE``.  Prints each
+    frame batch's render time on the card, and the v0 time at the pixel
+    path's 256 envs.  Returns the v0 256-env time in ms."""
+    ms_256 = None
+    for env_id, (E, mode) in RENDER_CASES.items():
+        logic = _logic(env_id)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        state, _ = logic.reset_fast(gen, E, logic.default_params())
+        render = make_device_renderer(logic, downsample=4, mode=mode)
+        got = render(state)
+        t0 = time.perf_counter()
+        want = render(tree_map(lambda x: x.cpu(), state))
+        cpu_s = time.perf_counter() - t0
+        equal = (got.cpu() == want).all(dim=-1).flatten(1).to(torch.float64)
+        share, worst = float(equal.mean()), float(equal.mean(dim=1).min())
+        ms = cuda_ms(lambda: render(state), 5)
+        line = (f"  renderer {env_id} {mode}, {E} spawns, frames {tuple(got.shape[1:])}: card "
+                f"against CPU {share:.6f} of pixels equal (limit {RENDER_EQUAL_SHARE}), worst "
+                f"frame {worst:.6f}; {ms:.3f} ms per batch on the card, CPU {cpu_s:.1f} s")
+        if env_id == ENV_ID:
+            part = tree_map(lambda x: x[..., :CNN_CONFIG["n_envs"]].contiguous(), state)
+            ms_256 = cuda_ms(lambda: render(part), 20)
+            line += f"; {ms_256:.3f} ms per batch of {CNN_CONFIG['n_envs']}"
+        print(line + f"  [{card_line}]", flush=True)
+        if not (share >= RENDER_EQUAL_SHARE and got.dtype == torch.uint8
+                and got.device.type == "cuda"):
+            raise AssertionError(f"renderer {env_id}: the card's frames differ from the CPU's")
+    return ms_256
+
+
+def run_pixel_training(card_line) -> tuple:
+    """Phase 9's CNN PPO at the pixel recipe through :func:`train_and_resume`,
+    with cuDNN held to deterministic algorithms (its convolution backward
+    may otherwise pick non-deterministic ones, and the resumed update must
+    be bitwise).  Returns (learner, state, launches)."""
+    cfg = PPOConfig(**CNN_CONFIG)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        print(f"  {cfg.env_id} policy {cfg.policy} n_envs {cfg.n_envs} n_steps {cfg.n_steps} "
+              f"batch {cfg.batch_size} epochs {cfg.n_epochs} lr {cfg.learning_rate} ent "
+              f"{cfg.ent_coef} target_kl {cfg.target_kl} backend {cfg.env_backend} "
+              f"{cfg.velocity_iters}/{cfg.position_iters}; cudnn.deterministic True, "
+              f"cudnn.benchmark False  [{card_line}]", flush=True)
+        algo, ts, launches = train_and_resume(lambda: PPO(cfg), card_line, CNN_TIMED_UPDATES,
+                                              "CNN PPO")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    print(f"  obs {tuple(ts.last_obs.shape)} {ts.last_obs.dtype}; "
+          f"{sum(v.numel() for v in ts.params.values())} params; timed parts: env = physics "
+          f"(fused tick kernel, {algo.env.cfg.frameskip} launches per step) and reward "
+          f"bookkeeping, render = frames and stacks", flush=True)
+    return algo, ts, launches
+
+
+def run_pixel_eval(algo, ts, card_line) -> dict:
+    """Phase 9's eval of the policy the CNN updates produced: deterministic
+    actions on the obs of ``CNN_EVAL_EPISODES`` reference resets on the card
+    against the CPU, then as many deterministic episodes of at most
+    ``CNN_EVAL_MAX_STEPS`` steps at 180/60 through ``evaluate_policy_batched``
+    with the training run's image pipeline, launches counted."""
+    image_cfg = evaluate._image_pipeline(algo)
+    env = evaluate.make_eval_env(ENV_ID, CNN_EVAL_EPISODES, algo.device, image_cfg=image_cfg)
+    _ist, obs = env.reset(seed=0)
+    cpu = lambda x: x.cpu()  # noqa: E731
+    with torch.no_grad():
+        got = evaluate.policy_action(algo, ts.params, ts.normalizer, obs, True)
+        want = evaluate.policy_action(algo, tree_map(cpu, ts.params),
+                                      tree_map(cpu, ts.normalizer), obs.cpu(), True)
+        raw = [algo.apply(p, o)[0] for p, o in ((ts.params, obs),
+                                                  (tree_map(cpu, ts.params), obs.cpu()))]
+    err = maxdiff(got.cpu(), want)
+    raw_err = maxdiff(raw[0].cpu(), raw[1])
+    print(f"  CNN deterministic actions on the obs of {CNN_EVAL_EPISODES} reference resets "
+          f"{tuple(obs.shape)}, card against CPU: max abs diff {err:.3e}, unclipped means "
+          f"{raw_err:.3e} (limit {CNN_ACTION_TOL:g}, about ten times the measured difference; "
+          f"bf16 convolutions, cuDNN against the CPU's); mean |action| "
+          f"{float(want.abs().mean()):.3f}  [{card_line}]", flush=True)
+    if not (err <= CNN_ACTION_TOL and raw_err <= CNN_ACTION_TOL):
+        raise AssertionError("pixel eval: the card's actions differ from the CPU's")
+
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    ret_mean, ret_std, returns, lengths = evaluate.evaluate_policy_batched(
+        algo, ts, n_episodes=CNN_EVAL_EPISODES, deterministic=True, seed=0,
+        max_steps=CNN_EVAL_MAX_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: step_cuda.launch_count(name) for name in ("step_fused", "solve_contacts")}
+    # every chunk runs to its end: max_steps steps, plus the reference
+    # reset's random step
+    steps = CNN_EVAL_MAX_STEPS + 1
+    lengths = np.asarray(lengths)
+    print(f"  {CNN_EVAL_EPISODES} deterministic episodes (max {CNN_EVAL_MAX_STEPS} steps, "
+          f"{image_cfg}, fused, {VI}/{PI}): mean return {ret_mean:.2f}, std {ret_std:.2f}, "
+          f"{int((lengths < CNN_EVAL_MAX_STEPS).sum())} ended early; {wall:.2f} s wall, "
+          f"{1e3 * wall / steps:.2f} ms per env step ({steps} steps with the reset's); "
+          f"launches {launches}  [{card_line}]", flush=True)
+    want_launches = {"step_fused": algo.env.cfg.frameskip * steps, "solve_contacts": 0}
+    if launches != want_launches:
+        raise AssertionError(f"pixel eval: launches {launches}, expected {want_launches}")
+    if not (np.isfinite(returns).all() and lengths.min() >= 1):
+        raise AssertionError("pixel eval: non-finite returns or empty episodes")
+    return dict(err=err, ms_per_step=1e3 * wall / steps)
+
+
+def time_pixel_kernel(dev, card_line) -> dict:
+    """Kernel A at the pixel path's shape (256 v0 spawns) at the training
+    and eval solver iterations: held against ``world.step`` on the same
+    inputs (``SPAWN_LIMITS``, exact trig) and its incremental trig, which
+    the path runs, against exact (``SPAWN_TRIG_LIMITS``' pos and angle); then
+    its time per launch beside its bound.  At 8 envs per warp the launch
+    fills one one-warp block per 8 envs."""
+    E = CNN_CONFIG["n_envs"]
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, 0)
+    for vi, pi_iters in PIXEL_ITERS:
+        check_spawns(dev, E, 0, vel_iters=vi, pos_iters=pi_iters)
+        args = (table, bodies, contacts, force, torque, wake, DT, vi, pi_iters)
+        bi = step_cuda.step_fused(*args)[0]
+        be = step_cuda.step_fused(*args, incremental_trig=False)[0]
+        report(f"fused, {ENV_ID} spawns E={E} 1 tick {vi}/{pi_iters}, incremental vs exact "
+               f"trig", dict(pos=maxdiff(bi.pos, be.pos), angle=maxdiff(bi.angle, be.angle)),
+               {k: SPAWN_TRIG_LIMITS[k] for k in ("pos", "angle")})
+    bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
+    live = world.before_solve(table, bodies, contacts, force, torque, wake, DT)[0][0]
+    live = live.solve & (live.count > 0)
+    per_warp = step_cuda.KERNEL.envs_per_warp()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for vi, pi_iters in PIXEL_ITERS:
+        fn = lambda: step_cuda.launch(table, bf, pf, pi, DT, vi, pi_iters)  # noqa: E731
+        fn()
+        ms = cuda_ms(fn, 20)
+        b = kernel_bound(table, bf, live, vi, pi_iters)
+        print(f"  step_fused at the pixel path's shape, {E} v0 spawns {vi}/{pi_iters}: "
+              f"{ms:.3f} ms per launch; {live_line(live, step_cuda.KERNEL)}; bound "
+              f"{b['ms']:.6f} ms ({b['by']}): {b['bytes']} bytes = {b['bytes_ms']:.6f} ms, "
+              f"{b['ops']} f32 ops = {b['ops_ms']:.6f} ms; {-(-E // per_warp)} one-warp blocks "
+              f"on {sms} SMs  [{card_line}]", flush=True)
+        out[(vi, pi_iters)] = dict(ms=ms, bound=b)
+    return out
 
 
 def main() -> int:
@@ -808,6 +1012,15 @@ def main() -> int:
     print("== 8. eval of the committed v0 policy", flush=True)
     run_eval(card_line)
 
+    print("== 9. pixels: renderer, CNN PPO at the pixel recipe, its eval, kernel A at 256 "
+          "envs", flush=True)
+    render_ms = check_renderer(dev, card_line)
+    pixel_algo, pixel_ts, pixel_launches = run_pixel_training(card_line)
+    pixel_eval = run_pixel_eval(pixel_algo, pixel_ts, card_line)
+    pixel_kernel = time_pixel_kernel(dev, card_line)
+    print(f"  pixel path: render {render_ms:.3f} ms per step of {CNN_CONFIG['n_envs']} envs; "
+          f"eval {pixel_eval['ms_per_step']:.2f} ms per step  [{card_line}]", flush=True)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -824,6 +1037,9 @@ def main() -> int:
              source="gym_puzzles_tpu_torch/csrc/step_fused.cu",
              replaces="gym_puzzles_tpu/engine/step_pallas.py:539",
              launches=fused_run["launches"], train_launches=train_launches,
+             pixel_train_launches=pixel_launches["step_fused"],
+             pixel_ms=pixel_kernel[PIXEL_ITERS[0]]["ms"],
+             pixel_bound_ms=pixel_kernel[PIXEL_ITERS[0]]["bound"]["ms"],
              max_abs_err=spawn_diff["max"],
              ms=v0["fused_ms"], plain_ms=plain_ms,
              bound_ms=v0["fused_bound"]["ms"], bound_by=v0["fused_bound"]["by"]),

@@ -1,0 +1,113 @@
+"""v0 image-observation pipeline on the device (port of
+``gym_puzzles_tpu/api/image_obs.py::DeviceImageVectorEnv``).
+
+The reference's ``obs_type='image'`` capability: stacked
+``(h * obs_depth, w, 3)`` uint8 frames with frameskip 4
+(multi_robot_puzzle_00.py:161-162,197-200), declared but off by default
+there.  Here thousands of envs render their frames on the device
+(``render/device.py``) after every step and carry their frame stacks there,
+so a CNN policy trains on pixels with no host round trip.  The physics
+steps through the port's :class:`~gym_puzzles_tpu_torch.api.vector.VectorEnv`
+(by default the fused tick kernel, ``frameskip`` launches per step).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+from gym_puzzles_tpu_torch.api.registry import _image_logic
+from gym_puzzles_tpu_torch.api.vector import VectorEnv
+from gym_puzzles_tpu_torch.engine.types import Replaceable
+from gym_puzzles_tpu_torch.envs.common import EnvState
+from gym_puzzles_tpu_torch.render.device import make_device_renderer
+
+
+@dataclasses.dataclass
+class ImageVectorState(Replaceable):
+    """The batched env state and the frame stacks."""
+
+    vec: EnvState  # env axis last
+    frames: torch.Tensor  # [E, obs_depth, h, w, 3] uint8, oldest first
+
+
+class DeviceImageVectorEnv:
+    """Batched image-obs env with rendering on the device; duck-typed to
+    :class:`VectorEnv` (``reset`` / ``step`` / ``default_params``,
+    ``generator``, ``device``, ``cfg``, ``logic``) so PPO drives it unchanged.
+
+    Obs are the reference's stacked frame layout, batched:
+    ``[E, h * obs_depth, w, 3]`` uint8, oldest frame first, zero-padded at
+    episode starts.  Physics honours the image mode's ``frameskip`` (default
+    4).  Runs on ``device`` (default ``cuda``; with no CUDA and no device
+    named this raises)."""
+
+    def __init__(self, env_id: str = "MultiRobotPuzzle-v0", num_envs: int = 8,
+                 obs_depth: int = 3, frameskip: int = 4, downsample: int = 4,
+                 backend: str = "fused", mode: str = "human_vision",
+                 block_shape: str = "t", auto_reset: bool = True,
+                 reset_mode: str = "fast", velocity_iters: int | None = None,
+                 position_iters: int | None = None, device=None):
+        logic = _image_logic(env_id, frameskip, block_shape, velocity_iters, position_iters)
+        self._env = VectorEnv(logic, num_envs, auto_reset=auto_reset, reset_mode=reset_mode,
+                              device=device, backend=backend)
+        self.logic = logic
+        self.cfg = logic.cfg
+        self.num_envs = int(num_envs)
+        self.device = self._env.device
+        self.obs_depth = obs_depth
+        # the pipeline's config, so that evaluation rebuilds the training obs
+        self.frameskip = frameskip
+        self.downsample = downsample
+        self.mode = mode
+        self.block_shape = block_shape
+        self.render = make_device_renderer(logic, downsample=downsample, mode=mode)
+        self.frame_shape = (self.render.height, self.render.width, 3)
+        self.obs_shape = (self.render.height * obs_depth, self.render.width, 3)
+
+    @property
+    def generator(self) -> torch.Generator:
+        """The env's own generator (spawns), seeded by :meth:`reset`."""
+        return self._env.generator
+
+    @property
+    def image_pipeline(self) -> tuple:
+        """(obs_depth, frameskip, downsample, mode, block_shape)."""
+        return (self.obs_depth, self.frameskip, self.downsample, self.mode, self.block_shape)
+
+    def default_params(self):
+        return self._env.default_params()
+
+    def stack_obs(self, frames):
+        """[E, depth, h, w, 3] frames -> [E, depth * h, w, 3] obs."""
+        return frames.reshape((frames.shape[0],) + self.obs_shape)
+
+    def reset(self, seed: int = 0, params=None):
+        """Seed the env's generator and spawn every env.  Returns
+        (ImageVectorState, obs): ``obs_depth - 1`` zero frames, then the
+        rendered first frame."""
+        vec, _obs = self._env.reset(seed, params)
+        frame = self.render(vec)
+        frames = torch.zeros((self.num_envs, self.obs_depth) + self.frame_shape,
+                             dtype=torch.uint8, device=self.device)
+        frames[:, -1] = frame
+        return ImageVectorState(vec=vec, frames=frames), self.stack_obs(frames)
+
+    def step(self, istate: ImageVectorState, action, params=None, timer=None):
+        """action: [E, act_dim].  Returns (istate, obs, reward [E], done [E],
+        info).  The frame is rendered from the state after autoreset; where
+        ``done``, the stack starts afresh (zero-padded), elsewhere it shifts
+        by one frame.  ``timer(name)`` (a context manager, e.g. the learner's
+        ``PhaseTimer``) times the physics as ``env`` and the frames as
+        ``render``."""
+        timer = timer or (lambda _name: contextlib.nullcontext())
+        with timer("env"):
+            vec, _obs, reward, done, info = self._env.step(istate.vec, action, params)
+        with timer("render"):
+            frame = self.render(vec)
+            older = torch.where(done[:, None, None, None, None], 0, istate.frames[:, 1:])
+            frames = torch.cat([older, frame[:, None]], dim=1)
+        return (ImageVectorState(vec=vec, frames=frames), self.stack_obs(frames),
+                reward, done, info)

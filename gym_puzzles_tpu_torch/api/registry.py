@@ -115,6 +115,18 @@ def _logic(env_id: str, block_shape: str = "t", velocity_iters: int | None = Non
     return V3Env(cfg)
 
 
+@functools.lru_cache(maxsize=None)
+def _image_logic(env_id: str, frameskip: int = 4, block_shape: str = "t",
+                 velocity_iters: int | None = None, position_iters: int | None = None):
+    """Env logic at the reference's image-mode physics config (frameskip 4,
+    00.py:161-162) for the pixel-observation pipeline: ``frameskip`` engine
+    ticks per env step, the first with the step's controls."""
+    base = _logic(env_id, block_shape, velocity_iters, position_iters)
+    if frameskip == base.cfg.frameskip:
+        return base
+    return type(base)(dataclasses.replace(base.cfg, frameskip=int(frameskip)))
+
+
 def make(env_id: str, num_envs: int = 1, auto_reset: bool = True,
          reset_mode: str = "fast", backend: str = "fused", block_shape: str = "t",
          num_agents: int | None = None, heavy: bool | None = None,

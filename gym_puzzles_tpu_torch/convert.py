@@ -18,7 +18,12 @@ Policies go across too: :func:`actor_critic_from_numpy` reads the flax
 and ``bias``, plus ``log_std``), and :func:`policy_to_npz` /
 :func:`policy_from_npz` write and read the slim policy file (params in that
 layout, the normalizer moments, ``timesteps``) that ``train/export.py``
-writes and ``gym_puzzles_tpu_torch/policies/`` holds.
+writes and ``gym_puzzles_tpu_torch/policies/`` holds.  The pixel policy goes
+across as well: :func:`cnn_actor_critic_from_numpy` reads the flax
+``CnnActorCritic`` params (``Conv_0 .. Conv_2`` with HWIO kernels,
+``Dense_0 .. Dense_2``, ``log_std``), and its policy file records the image
+pipeline it was trained on.  :func:`image_state_from_numpy` carries an image
+env's state (the env state and its frame stacks).
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from gym_puzzles_tpu_torch.api.image_obs import ImageVectorState
 from gym_puzzles_tpu_torch.engine.narrowphase import Manifold
 from gym_puzzles_tpu_torch.engine.solver import VelocityConstraints
 from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, ShapeTable
 from gym_puzzles_tpu_torch.envs.common import EnvState
-from gym_puzzles_tpu_torch.train.networks import ActorCritic
+from gym_puzzles_tpu_torch.train.networks import ActorCritic, CnnActorCritic
 from gym_puzzles_tpu_torch.train.normalize import NormalizerState, RunningMeanStd
 
 # dataclass-valued fields of the state tree
@@ -60,6 +66,18 @@ def state_from_numpy(tree, device=None) -> EnvState:
     contacts with their manifold, flags, distances, goal_pos, t,
     done_status), keeping each array's dtype."""
     return from_numpy(EnvState, tree, device)
+
+
+def image_state_from_numpy(tree, device=None) -> ImageVectorState:
+    """The port's ImageVectorState from ``{"vec": <env state tree>, "frames":
+    [E, depth, h, w, 3] uint8}``; ``vec`` may be the JAX ``VectorState``'s
+    tree, whose env state sits under ``"env"`` (its PRNG keys are not
+    carried)."""
+    vec = tree["vec"]
+    vec = vec.get("env", vec)
+    return ImageVectorState(vec=state_from_numpy(vec, device),
+                            frames=torch.as_tensor(np.array(tree["frames"], np.uint8),
+                                                   device=device))
 
 
 def constraints_from_numpy(tree, device=None) -> VelocityConstraints:
@@ -112,14 +130,52 @@ def actor_critic_from_numpy(params, device=None) -> ActorCritic:
     return net.to(device)
 
 
+def cnn_actor_critic_from_numpy(params, obs_shape, device=None) -> CnnActorCritic:
+    """A :class:`CnnActorCritic` for uint8 obs of ``obs_shape`` [H, W, C]
+    holding the flax params ``{Conv_0..2, Dense_0..2, log_std}`` (or the
+    variables dict ``{"params": ...}``): each ``Conv_i.kernel`` [kh, kw, in,
+    out] becomes ``Conv2d.weight`` [out, in, kh, kw], each ``Dense_i.kernel``
+    [in, out] ``nn.Linear.weight`` [out, in]."""
+    params = params.get("params", params)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
+    kernel = lambda name: np.asarray(params[name]["kernel"], np.float32)  # noqa: E731
+    net = CnnActorCritic(obs_shape, kernel("Dense_1").shape[1], kernel("Dense_0").shape[1])
+    if tuple(net.dense.weight.shape[::-1]) != kernel("Dense_0").shape:
+        raise ValueError(f"Dense_0 {kernel('Dense_0').shape} does not fit obs {obs_shape}")
+    with torch.no_grad():
+        for i, conv in enumerate(net.convs):
+            conv.weight.copy_(f32(kernel(f"Conv_{i}")).permute(3, 2, 0, 1))
+            conv.bias.copy_(f32(params[f"Conv_{i}"]["bias"]))
+        for i, layer in enumerate((net.dense, net.mean, net.value)):
+            layer.weight.copy_(f32(kernel(f"Dense_{i}").T))
+            layer.bias.copy_(f32(params[f"Dense_{i}"]["bias"]))
+        net.log_std.copy_(f32(params["log_std"]))
+    return net.to(device)
+
+
+def is_cnn(state_dict) -> bool:
+    """Whether a state_dict (or a tree keyed as one) is a CnnActorCritic's."""
+    return "convs.0.weight" in state_dict
+
+
 def params_to_numpy(state_dict) -> dict:
-    """An :class:`ActorCritic` state_dict in the flax params layout
-    (inverse of :func:`actor_critic_from_numpy`)."""
+    """An :class:`ActorCritic` or :class:`CnnActorCritic` state_dict in the
+    flax params layout (inverse of :func:`actor_critic_from_numpy` and
+    :func:`cnn_actor_critic_from_numpy`)."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
-    n = sum(1 for k in sd if k.startswith("trunk.") and k.endswith(".weight"))
-    names = [f"trunk.{i}" for i in range(n)] + ["mean", "value"]
-    out = {f"Dense_{i}": {"kernel": sd[f"{name}.weight"].T.copy(), "bias": sd[f"{name}.bias"]}
-           for i, name in enumerate(names)}
+    out = {}
+    if is_cnn(sd):
+        n_conv = sum(1 for k in sd if k.startswith("convs.") and k.endswith(".weight"))
+        for i in range(n_conv):
+            out[f"Conv_{i}"] = {"kernel": sd[f"convs.{i}.weight"].transpose(2, 3, 1, 0).copy(),
+                                "bias": sd[f"convs.{i}.bias"]}
+        names = ["dense", "mean", "value"]
+    else:
+        n = sum(1 for k in sd if k.startswith("trunk.") and k.endswith(".weight"))
+        names = [f"trunk.{i}" for i in range(n)] + ["mean", "value"]
+    out.update({f"Dense_{i}": {"kernel": sd[f"{name}.weight"].T.copy(),
+                               "bias": sd[f"{name}.bias"]}
+                for i, name in enumerate(names)})
     out["log_std"] = sd["log_std"]
     return out
 
@@ -141,21 +197,32 @@ def normalizer_from_numpy(tree, device=None) -> NormalizerState:
     )
 
 
+# the image pipeline a pixel policy was trained on, as its policy file records it
+IMAGE_PIPELINE = ("obs_depth", "frameskip", "downsample", "mode", "block_shape")
+
+
 @dataclasses.dataclass
 class Policy:
     """What evaluation needs of a trained policy: the network, the frozen
-    normalizer moments and the env steps it was trained for."""
+    normalizer moments and the env steps it was trained for; for a pixel
+    policy also the image pipeline (``IMAGE_PIPELINE`` order) its obs come
+    from, else None."""
 
-    net: ActorCritic
+    net: torch.nn.Module
     obs_rms: RunningMeanStd
     ret_rms: RunningMeanStd
     timesteps: int
+    image_pipeline: tuple | None = None
 
 
-def policy_to_npz(path, params, normalizer, timesteps: int):
+def policy_to_npz(path, params, normalizer, timesteps: int, image_pipeline=None,
+                  obs_shape=None):
     """Write the slim policy file: ``params/...`` in the flax layout of
     :func:`params_to_numpy`, ``normalizer/{obs_rms,ret_rms}/{mean,
-    var,count}`` and ``timesteps`` (int64), all numpy."""
+    var,count}`` and ``timesteps`` (int64), all numpy.  A pixel policy also
+    writes ``image/<field>`` for each field of ``image_pipeline``
+    (``IMAGE_PIPELINE`` order) and ``image/obs_shape``, so that
+    :func:`policy_from_npz` rebuilds its network and its obs pipeline."""
     flat = {"timesteps": np.int64(timesteps)}
 
     def put(prefix, tree):
@@ -169,6 +236,9 @@ def policy_to_npz(path, params, normalizer, timesteps: int):
     put("normalizer/", {r: {k: np.asarray(normalizer[r][k], np.float32)
                             for k in ("mean", "var", "count")}
                         for r in ("obs_rms", "ret_rms")})
+    if image_pipeline is not None:
+        put("image/", dict(zip(IMAGE_PIPELINE, image_pipeline),
+                           obs_shape=np.asarray(obs_shape, np.int64)))
     np.savez(path, **flat)
 
 
@@ -183,7 +253,14 @@ def policy_from_npz(path, device=None) -> Policy:
                 node = node.setdefault(p, {})
             node[leaf] = f[key]
     norm = tree["normalizer"]
-    return Policy(net=actor_critic_from_numpy(tree["params"], device),
+    image = tree.get("image")
+    if image is None:
+        net, pipeline = actor_critic_from_numpy(tree["params"], device), None
+    else:
+        net = cnn_actor_critic_from_numpy(tree["params"], tuple(image["obs_shape"].tolist()),
+                                          device)
+        pipeline = tuple(image[k].item() for k in IMAGE_PIPELINE)
+    return Policy(net=net,
                   obs_rms=rms_from_numpy(norm["obs_rms"], device),
                   ret_rms=rms_from_numpy(norm["ret_rms"], device),
-                  timesteps=int(tree["timesteps"]))
+                  timesteps=int(tree["timesteps"]), image_pipeline=pipeline)

@@ -1,6 +1,7 @@
 """Where the port's main path spends the card's time.
 
     python -m gym_puzzles_tpu_torch.profile_step [steps] [--env ID] [--backend fused|pallas]
+        [--pixels]
 
 Runs ``make(ID, num_envs=4096, backend=...)`` on the card (default
 MultiRobotPuzzle-v0, the fused backend; reset, 10 warm-up steps of random
@@ -8,8 +9,10 @@ actions), then traces ``steps`` more steps with
 ``torch.profiler`` and prints: the wall time per step (the tracer slows the
 host), the device's busy share of that time (the sum of device-kernel times
 over the wall time), the device kernels launched per step, and the top
-kernels by device time.  The last line is the same as one JSON object.
-Needs a CUDA device.
+kernels by device time.  With ``--pixels`` the env is the image env of the
+pixel recipe (``DeviceImageVectorEnv``, 256 envs, 60/20, frameskip 4), and
+``steps`` renders of one state are traced alone as well (``render``).  The
+last line is the same as one JSON object.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,27 +26,21 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gym_puzzles_tpu_torch import make
+from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
+# the pixel recipe's env (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl)
+PIXEL_ENVS, PIXEL_ITERS = 256, (60, 20)
 
 
-def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused") -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step: needs a CUDA device")
-    env = make(env_id, num_envs=NUM_ENVS, backend=backend)
-    dev = env.device
-    state, _obs = env.reset(seed=0)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    acts = torch.rand((steps + 10, NUM_ENVS, env.cfg.act_dim), generator=gen, device=dev) * 2 - 1
-    for k in range(10):
-        state, *_ = env.step(state, acts[steps + k])
-    torch.cuda.synchronize()
-
+def trace(fn, steps: int) -> dict:
+    """``fn(k)`` for k < ``steps`` under ``torch.profiler``: wall and device
+    ms per step, busy share, device kernels per step, top kernels."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in range(steps):
-            state, *_ = env.step(state, acts[k])
+            fn(k)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
 
@@ -56,24 +53,48 @@ def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused") -> dict:
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     top = [dict(name=e.key[:60], count=e.count, device_ms=e.self_device_time_total / 1e3)
            for e in kernels[:8]]
-    out = dict(
-        device=torch.cuda.get_device_name(0),
-        env_id=env_id,
-        backend=backend,
-        steps=steps,
-        wall_ms_per_step=1e3 * wall_s / steps,
-        device_ms_per_step=device_us / 1e3 / steps,
-        device_busy_share=(device_us / 1e6) / wall_s,
-        kernels_per_step=launches / steps,
-        top=top,
-    )
-    print(f"{env_id} backend={backend}: {steps} traced steps x {NUM_ENVS} envs on "
-          f"{out['device']}: "
-          f"{out['wall_ms_per_step']:.3f} ms/step wall, {out['device_ms_per_step']:.3f} ms/step "
-          f"on the device (busy share {out['device_busy_share']:.3f}), "
-          f"{out['kernels_per_step']:.1f} kernels/step")
-    for t in top:
-        print(f"  {t['device_ms']:10.3f} ms  x{t['count']:<6d} {t['name']}")
+    return dict(wall_ms_per_step=1e3 * wall_s / steps,
+                device_ms_per_step=device_us / 1e3 / steps,
+                device_busy_share=(device_us / 1e6) / wall_s,
+                kernels_per_step=launches / steps, top=top)
+
+
+def report(name: str, t: dict):
+    print(f"{name}: {t['wall_ms_per_step']:.3f} ms/step wall, {t['device_ms_per_step']:.3f} "
+          f"ms/step on the device (busy share {t['device_busy_share']:.3f}), "
+          f"{t['kernels_per_step']:.1f} kernels/step")
+    for k in t["top"]:
+        print(f"  {k['device_ms']:10.3f} ms  x{k['count']:<6d} {k['name']}")
+
+
+def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
+         pixels: bool = False) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+    if pixels:
+        env = DeviceImageVectorEnv(env_id, num_envs=PIXEL_ENVS, backend=backend,
+                                   velocity_iters=PIXEL_ITERS[0], position_iters=PIXEL_ITERS[1])
+    else:
+        env = make(env_id, num_envs=NUM_ENVS, backend=backend)
+    dev, E = env.device, env.num_envs
+    state, _obs = env.reset(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    acts = torch.rand((steps + 10, E, env.cfg.act_dim), generator=gen, device=dev) * 2 - 1
+    for k in range(10):
+        state, *_ = env.step(state, acts[steps + k])
+    torch.cuda.synchronize()
+
+    def step(k):
+        nonlocal state
+        state, *_ = env.step(state, acts[k])
+
+    out = dict(device=torch.cuda.get_device_name(0), env_id=env_id, backend=backend,
+               pixels=pixels, num_envs=E, steps=steps, **trace(step, steps))
+    report(f"{env_id} backend={backend}{' pixels' if pixels else ''}: {steps} traced steps x "
+           f"{E} envs on {out['device']}", out)
+    if pixels:
+        out["render"] = trace(lambda _k: env.render(state.vec), steps)
+        report(f"  render alone, {E} envs", out["render"])
     print(json.dumps(out))
     return out
 
@@ -83,5 +104,7 @@ if __name__ == "__main__":
     parser.add_argument("steps", nargs="?", type=int, default=20)
     parser.add_argument("--env", default=ENV_ID)
     parser.add_argument("--backend", default="fused", choices=("fused", "pallas"))
+    parser.add_argument("--pixels", action="store_true",
+                        help="the image env of the pixel recipe (256 envs, 60/20, frameskip 4)")
     args = parser.parse_args()
-    main(args.steps, args.env, args.backend)
+    main(args.steps, args.env, args.backend, args.pixels)

@@ -69,7 +69,18 @@ def load(path, step: int | None = None) -> dict:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {path}")
-    return torch.load(path / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
+    tree = torch.load(path / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
+    tree.setdefault("image_pipeline", None)  # flat-obs checkpoints written before it existed
+    return tree
+
+
+def check_pipeline(saved, template):
+    """Raise unless the image pipeline a checkpoint or policy file records
+    is the ``template``'s (both None for a flat-obs learner)."""
+    saved = None if saved is None else tuple(saved)
+    if saved != template.image_pipeline:
+        raise ValueError(f"the checkpoint's image pipeline {saved} does not match the "
+                         f"learner's {template.image_pipeline}")
 
 
 def save(path, train_state, step: int):
@@ -83,7 +94,9 @@ def restore(path, template, step: int | None = None):
     """The TrainState saved at ``step`` (default: the latest), onto a
     ``template`` of the same shapes (e.g. ``PPO.init_state()``).  The
     template's generators -- the env's among them -- take the saved states."""
-    return from_tree(template, load(path, step))
+    tree = load(path, step)
+    check_pipeline(tree["image_pipeline"], template)
+    return from_tree(template, tree)
 
 
 def restore_policy(path, template, step: int | None = None):
@@ -91,15 +104,18 @@ def restore_policy(path, template, step: int | None = None):
     ``timesteps``, grafted into a ``template`` built at any env batch size
     (the analogue of the reference's PPO.load + VecNormalize.load with
     training=False, test.py:66-74).  ``path`` is a checkpoint directory or
-    a policy ``.npz`` (``train/export.py``)."""
+    a policy ``.npz`` (``train/export.py``); its image pipeline must be the
+    template's."""
     dev = template.timesteps.device
     if str(path).endswith(".npz"):
         pol = convert.policy_from_npz(path)
         tree = {"params": pol.net.state_dict(), "timesteps": pol.timesteps,
                 "normalizer": {"obs_rms": to_tree(pol.obs_rms),
-                               "ret_rms": to_tree(pol.ret_rms)}}
+                               "ret_rms": to_tree(pol.ret_rms)},
+                "image_pipeline": pol.image_pipeline}
     else:
         tree = load(path, step)
+    check_pipeline(tree["image_pipeline"], template)
     norm = template.normalizer
     return template.replace(
         params=from_tree(template.params, tree["params"]),

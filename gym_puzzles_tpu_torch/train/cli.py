@@ -9,8 +9,10 @@ checkpoint save/resume.  Runs on the card unless ``--device`` names another:
         --n_envs 4096 --n_steps 64 --batch_size 8192 --n_epochs 4 \\
         --total_timesteps 5000000
 
-The JAX CLI's ``--distributed`` and ``--policy cnn`` wait for the port's
-distribution and pixel pipeline.
+``--policy cnn`` trains the NatureCNN policy on v0's device-rendered
+frames (the JAX package's image pipeline: 3 stacked frames, frameskip 4,
+downsample 4).  The JAX CLI's ``--distributed`` waits for the port's
+distribution.
 """
 
 from __future__ import annotations
@@ -65,6 +67,10 @@ def build_parser():
     p.add_argument("--reward_anneal_updates", default=None, type=int,
                    help="linearly anneal --set_reward_params overrides back to the "
                         "variant defaults over the first N updates")
+    p.add_argument("--policy", default=None, choices=["mlp", "cnn"],
+                   help="mlp (flat obs, default) or cnn (the v0 image-obs mode, "
+                        "00.py:161-162,197-200: NatureCNN on stacked frames rendered "
+                        "on the device)")
     p.add_argument("--env_backend", default=None, choices=["fused", "pallas"],
                    help="engine tick: fused = one launch of the fused tick kernel per "
                         "step (default), pallas = the staged tick around the "
@@ -85,7 +91,8 @@ def build_parser():
 def overrides_from_args(args) -> dict:
     """PPOConfig overrides from the parsed flags."""
     overrides = {k: getattr(args, k) for k, _ in HPARAM_FLAGS if getattr(args, k) is not None}
-    for flag, field in (("env", "env_id"), ("n_envs", "n_envs"), ("env_backend", "env_backend"),
+    for flag, field in (("env", "env_id"), ("n_envs", "n_envs"), ("policy", "policy"),
+                        ("env_backend", "env_backend"),
                         ("velocity_iters", "velocity_iters"),
                         ("position_iters", "position_iters"),
                         ("max_episode_steps", "max_episode_steps"),

@@ -1,13 +1,16 @@
-"""Policy evaluation (port of ``gym_puzzles_tpu/train/evaluate.py``, flat
-observations): the rebuild of the reference's train/test.py.
+"""Policy evaluation (port of ``gym_puzzles_tpu/train/evaluate.py``): the
+rebuild of the reference's train/test.py.
 
 The policy runs with its normalizer frozen (VecNormalize training=False,
 test.py:66-68), deterministic (the mean action) or stochastic, in a
 dedicated eval env: no autoreset, the reference's reset (one random step),
 the registered episode limit and, unless overridden, the reference's 180/60
 solver iterations.  The eval env always rides the fused tick kernel
-(``backend='fused'``), which takes any batch size.  Video recording and the
-pixel policy come with the pixel pipeline.
+(``backend='fused'``), which takes any batch size.  A pixel policy
+(``policy='cnn'``) is evaluated on an image env with its training run's
+image pipeline (obs depth, frameskip, downsample, mode, block shape), and
+its obs are never normalized.  Video recording waits for the host
+rasterizer.
 
 Completions are counted by ``length < max_steps``, never from the returns.
 """
@@ -24,22 +27,44 @@ import torch
 from gym_puzzles_tpu_torch.train import normalize as nrm
 
 
-def make_eval_env(env_id: str, n: int, device, velocity_iters=None, position_iters=None):
-    """Eval env of ``n`` lanes: auto_reset off, reference reset, fused tick."""
+def _image_pipeline(algo):
+    """The training env's image pipeline (obs_depth, frameskip, downsample,
+    mode, block_shape), so that evaluation rebuilds the obs the CNN was
+    trained on; None for a flat-obs learner."""
+    if algo.obs_shape is None:
+        return None
+    return algo.env.image_pipeline
+
+
+def make_eval_env(env_id: str, n: int, device, velocity_iters=None, position_iters=None,
+                  image_cfg=None):
+    """Eval env of ``n`` lanes: auto_reset off, reference reset, fused tick;
+    an image env with the pipeline ``image_cfg`` (see
+    :func:`_image_pipeline`) when it is given."""
+    from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
     from gym_puzzles_tpu_torch.api.registry import make
 
     # stderr, so that `evaluate ... > out.json` stays JSON
-    print(f"# eval env: {env_id} n={n} backend=fused", file=sys.stderr)
+    print(f"# eval env: {env_id} n={n} backend=fused"
+          + (f" image pipeline {image_cfg}" if image_cfg is not None else ""), file=sys.stderr)
+    iters = dict(velocity_iters=velocity_iters, position_iters=position_iters)
+    if image_cfg is not None:
+        depth, frameskip, downsample, mode, block_shape = image_cfg
+        return DeviceImageVectorEnv(env_id, num_envs=n, obs_depth=depth, frameskip=frameskip,
+                                    downsample=downsample, mode=mode, block_shape=block_shape,
+                                    auto_reset=False, reset_mode="reference", backend="fused",
+                                    device=device, **iters)
     return make(env_id, num_envs=n, auto_reset=False, reset_mode="reference",
-                backend="fused", device=device, velocity_iters=velocity_iters,
-                position_iters=position_iters)
+                backend="fused", device=device, **iters)
 
 
 def policy_action(algo, params, norm, obs, deterministic: bool, generator=None):
-    """The policy's action on raw ``obs`` [E, obs_dim] with the normalizer
-    ``norm`` frozen, clipped to [-1, 1]: the mean, or with ``deterministic``
-    off a sample drawing its noise from ``generator``."""
-    if algo.cfg.normalize:
+    """The policy's action on raw ``obs`` ([E, obs_dim], or uint8 frames)
+    with the normalizer ``norm`` frozen, clipped to [-1, 1]: the mean, or
+    with ``deterministic`` off a sample drawing its noise from
+    ``generator``.  Obs are normalized where the learner normalizes them
+    (``PPO.use_obs_norm``: flat obs with ``normalize`` on; frames never)."""
+    if algo.use_obs_norm:
         obs = nrm.normalize_obs(norm, obs, update=False)[1]
     mean, log_std, _value = algo.apply(params, obs)
     if not deterministic:
@@ -58,7 +83,8 @@ def evaluate_policy(algo, train_state, n_episodes: int = 10, deterministic: bool
                     velocity_iters: int | None = None, position_iters: int | None = None):
     """-> (mean_return, std_return, returns list): ``n_episodes`` episodes one
     after another in a one-lane env, checking ``done`` on the host each step."""
-    env = make_eval_env(algo.cfg.env_id, 1, algo.device, velocity_iters, position_iters)
+    env = make_eval_env(algo.cfg.env_id, 1, algo.device, velocity_iters, position_iters,
+                        _image_pipeline(algo))
     params = env.default_params()
     max_steps = max_steps or env.cfg.max_episode_steps
     gen = torch.Generator(device=algo.device).manual_seed(_seed(seed, 0))
@@ -91,7 +117,7 @@ def evaluate_policy_batched(algo, train_state, n_episodes: int = 64,
     ``n_episodes`` episodes; ``lengths`` are the steps until done
     (``max_steps`` for a timeout)."""
     env = make_eval_env(algo.cfg.env_id, n_episodes, algo.device, velocity_iters,
-                        position_iters)
+                        position_iters, _image_pipeline(algo))
     params = env_params if env_params is not None else env.default_params()
     max_steps = max_steps or env.cfg.max_episode_steps
     chunk = min(chunk, max_steps)
@@ -124,6 +150,8 @@ def main(argv=None):
     (a checkpoint directory or a policy ``.npz``), evaluate N episodes and
     print one JSON line (returns, lengths, completions = episodes shorter
     than the step limit)."""
+    from gym_puzzles_tpu_torch import convert
+    from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
     from gym_puzzles_tpu_torch.train import checkpoint as ckpt
     from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 
@@ -132,6 +160,16 @@ def main(argv=None):
                    help="checkpoint directory written by the trainer CLI, or a policy .npz")
     p.add_argument("--config", default=None, type=str, help="JSON config path")
     p.add_argument("--env", default=None, type=str, help="env id override")
+    p.add_argument("--policy", default=None, choices=["mlp", "cnn"],
+                   help="policy architecture of the checkpoint (a pixel policy .npz says "
+                        "so itself)")
+    p.add_argument("--downsample", default=4, type=int,
+                   help="cnn only: frame downsample the checkpoint was trained with (it "
+                        "sets the CNN's flatten width)")
+    p.add_argument("--obs_depth", default=3, type=int,
+                   help="cnn only: stacked frame count (00.py:197-200)")
+    p.add_argument("--frameskip", default=4, type=int,
+                   help="cnn only: physics frameskip (00.py:161-162)")
     p.add_argument("--n_episodes", default=10, type=int)
     p.add_argument("--max_steps", default=None, type=int,
                    help="episode step cap (default: the env's registered max_episode_steps)")
@@ -156,8 +194,21 @@ def main(argv=None):
     overrides = {"n_envs": 1, "n_steps": 2, "batch_size": 2, "n_epochs": 1}
     if args.env:
         overrides["env_id"] = args.env
+    # a pixel policy file records its image pipeline; else the flags give it
+    image_cfg = (convert.policy_from_npz(args.checkpoint).image_pipeline
+                 if args.checkpoint.endswith(".npz") else None)
+    if args.policy or image_cfg is not None:
+        overrides["policy"] = "cnn" if image_cfg is not None else args.policy
     cfg = PPOConfig.from_reference_json(config, **overrides)
-    algo = PPO(cfg, device=args.device)
+    env = None
+    if cfg.policy == "cnn":
+        image_cfg = image_cfg or (args.obs_depth, args.frameskip, args.downsample,
+                                  "human_vision", "t")
+        depth, frameskip, downsample, mode, block_shape = image_cfg
+        env = DeviceImageVectorEnv(cfg.env_id, num_envs=cfg.n_envs, obs_depth=depth,
+                                   frameskip=frameskip, downsample=downsample, mode=mode,
+                                   block_shape=block_shape, device=args.device)
+    algo = PPO(cfg, device=args.device, env=env)
     state = ckpt.restore_policy(args.checkpoint, algo.init_state(args.seed))
     iters = dict(velocity_iters=args.velocity_iters, position_iters=args.position_iters)
 
@@ -178,6 +229,7 @@ def main(argv=None):
            "trained_timesteps": ckpt.step_count(state.timesteps),
            "device": (torch.cuda.get_device_name(algo.device) if algo.device.type == "cuda"
                       else str(algo.device)),
+           "policy": cfg.policy, "image_pipeline": _image_pipeline(algo),
            "eval_backend": "fused", "batched": args.batched,
            "eval_solver_iters": [args.velocity_iters or ecfg.velocity_iters,
                                  args.position_iters or ecfg.position_iters],

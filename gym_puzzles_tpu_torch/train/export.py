@@ -11,6 +11,9 @@ writes exactly that, as an ``.npz`` in the layout of
 
     python -m gym_puzzles_tpu_torch.train.export \\
         --checkpoint models/MultiRobotPuzzle-v0 --out policy.npz
+
+A pixel policy's file also records the image pipeline its checkpoint
+recorded (``TrainState.image_pipeline``) and its obs shape.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ def export(checkpoint_path, out_path, step: int | None = None) -> int:
     tree = ckpt.load(checkpoint_path, step)
     norm = {r: {k: v.numpy() for k, v in tree["normalizer"][r].items()}
             for r in ("obs_rms", "ret_rms")}
+    pipeline = tree["image_pipeline"]
+    obs_shape = None if pipeline is None else tuple(tree["last_obs"].shape[1:])
     convert.policy_to_npz(out_path, convert.params_to_numpy(tree["params"]), norm,
-                          int(tree["timesteps"]))
+                          int(tree["timesteps"]), pipeline, obs_shape)
     return int(step)
 
 

@@ -1,4 +1,8 @@
-"""PPO learner (port of ``gym_puzzles_tpu/train/ppo.py``, flat observations).
+"""PPO learner (port of ``gym_puzzles_tpu/train/ppo.py``).
+
+Two policies: ``policy='mlp'`` (flat observations, :class:`ActorCritic`) and
+``policy='cnn'`` (stacked uint8 frames rendered on the device by
+:class:`DeviceImageVectorEnv`, :class:`CnnActorCritic`).
 
 One :meth:`PPO.train_step` is one update, in three parts that can be called
 alone:
@@ -33,14 +37,15 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
 from gym_puzzles_tpu_torch.api.registry import make
 from gym_puzzles_tpu_torch.api.vector import resolve_device
 from gym_puzzles_tpu_torch.engine.types import Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.envs.config import RewardParams, _f32
 from gym_puzzles_tpu_torch.train import normalize as nrm
-from gym_puzzles_tpu_torch.train.networks import (ActorCritic, gaussian_entropy,
-                                                  gaussian_log_prob)
+from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
+                                                  gaussian_entropy, gaussian_log_prob)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 
@@ -61,7 +66,8 @@ class PPOConfig:
     max_grad_norm: float = 0.5
     target_kl: float | None = 0.01
     net_arch: tuple = (256, 256)
-    # 'mlp' (SB3 MlpPolicy); the pixel policy comes with the pixel pipeline
+    # 'mlp' (SB3 MlpPolicy on flat obs) | 'cnn' (SB3 CnnPolicy on the v0
+    # image-obs pipeline rendered on the device, 00.py:161-162,197-200)
     policy: str = "mlp"
     normalize: bool = True
     seed: int = 17
@@ -155,7 +161,7 @@ class TrainState(Replaceable):
     opt_state: AdamState
     normalizer: nrm.NormalizerState
     vstate: EnvState
-    last_obs: torch.Tensor  # [E, obs_dim] raw
+    last_obs: torch.Tensor  # [E, obs_dim] raw, or [E, h * depth, w, 3] uint8 frames
     generator: torch.Generator  # action noise and minibatch order
     env_generator: torch.Generator  # the env's own (spawns); the VectorEnv's
     timesteps: torch.Tensor  # [] int64 env steps consumed
@@ -165,13 +171,16 @@ class TrainState(Replaceable):
     stat_count: torch.Tensor  # [] float32 completed episodes
     env_params: RewardParams  # curriculum state
     hparams: HParams
+    # the image env's (obs_depth, frameskip, downsample, mode, block_shape),
+    # so that a checkpoint records how its frames were made; None for flat obs
+    image_pipeline: tuple | None = None
 
 
 @dataclasses.dataclass
 class Transition:
     """One rollout, [n_steps, n_envs, ...] per field."""
 
-    obs: torch.Tensor  # normalized
+    obs: torch.Tensor  # normalized (flat), or the uint8 frames
     action: torch.Tensor  # unclipped
     log_prob: torch.Tensor
     value: torch.Tensor
@@ -181,7 +190,8 @@ class Transition:
 
 
 class PhaseTimer:
-    """Wall seconds by part of an update, for measurement only: each part
+    """Wall seconds by part of an update (``env``, ``render`` on the image
+    env, ``policy``, ``gae``, ``update``), for measurement only: each part
     starts and ends with a device synchronise, which the untimed path never
     does."""
 
@@ -251,31 +261,53 @@ class PPO:
     :class:`TrainState`.
 
     Runs on ``device`` (default ``cuda``; with no CUDA and no device named,
-    this raises).  Matmuls keep PyTorch's default float32 precision (TF32
+    this raises), or on the device of ``env`` when one is given (e.g. an
+    image env with another pipeline); by default the env is built from
+    ``cfg``: ``make(...)`` for ``policy='mlp'``, ``DeviceImageVectorEnv``
+    (the default image pipeline) for ``'cnn'``.  Matmuls keep PyTorch's default float32 precision (TF32
     off, ``torch.get_float32_matmul_precision() == 'highest'``), so that the
     card's actions match the CPU's."""
 
-    def __init__(self, cfg: PPOConfig, device=None):
-        if cfg.policy != "mlp":
-            raise NotImplementedError(f"policy {cfg.policy!r}: the port has the flat-obs "
-                                      "MLP policy only")
+    def __init__(self, cfg: PPOConfig, device=None, env=None):
         self.cfg = cfg
-        # make() rejects an unknown env_backend
-        self.env = env = make(cfg.env_id, num_envs=cfg.n_envs, backend=cfg.env_backend,
-                              velocity_iters=cfg.velocity_iters,
-                              position_iters=cfg.position_iters,
-                              max_episode_steps=cfg.max_episode_steps,
-                              device=resolve_device(device))
+        if env is None and cfg.policy == "cnn":
+            # the JAX package's image env ignores max_episode_steps
+            # (ppo.py:190); the port refuses it rather than drop it silently
+            if cfg.max_episode_steps is not None:
+                raise ValueError("max_episode_steps is not supported with policy='cnn': the "
+                                 "image env keeps the registered episode limit")
+            env = DeviceImageVectorEnv(cfg.env_id, num_envs=cfg.n_envs, backend=cfg.env_backend,
+                                       velocity_iters=cfg.velocity_iters,
+                                       position_iters=cfg.position_iters,
+                                       device=resolve_device(device))
+        elif env is None:
+            if cfg.policy != "mlp":
+                raise ValueError(f"policy must be 'mlp' or 'cnn', got {cfg.policy!r}")
+            # make() rejects an unknown env_backend
+            env = make(cfg.env_id, num_envs=cfg.n_envs, backend=cfg.env_backend,
+                       velocity_iters=cfg.velocity_iters, position_iters=cfg.position_iters,
+                       max_episode_steps=cfg.max_episode_steps, device=resolve_device(device))
+        self.env = env
         self.device = env.device
         self.obs_dim, self.act_dim = env.cfg.obs_dim, env.cfg.act_dim
+        # image envs expose obs_shape (stacked uint8 frames); flat envs don't
+        self.obs_shape = getattr(env, "obs_shape", None)
+        # obs normalization for flat obs only (SB3 image runs use
+        # norm_obs=False); the reward is normalized either way
+        self.use_obs_norm = cfg.normalize and self.obs_shape is None
         # the architecture; a TrainState's params are applied through it
-        self.net = ActorCritic(self.obs_dim, self.act_dim, cfg.net_arch,
-                               torch.Generator().manual_seed(cfg.seed)).to(self.device)
+        self.net = self.build_net(torch.Generator().manual_seed(cfg.seed)).to(self.device)
         self.default_env_params = env.default_params()
         self.env_params = (
             self.default_env_params.set_reward_params(**dict(cfg.reward_params))
             if cfg.reward_params else self.default_env_params
         )
+
+    def build_net(self, generator: torch.Generator):
+        """A fresh network on the CPU, its init drawn from ``generator``."""
+        if self.obs_shape is not None:
+            return CnnActorCritic(self.obs_shape, self.act_dim, generator=generator)
+        return ActorCritic(self.obs_dim, self.act_dim, self.cfg.net_arch, generator)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int | None = None) -> TrainState:
@@ -287,8 +319,7 @@ class PPO:
         seed = cfg.seed if seed is None else seed
         net_seed, env_seed, run_seed = (int(s) for s in
                                         np.random.SeedSequence(seed).generate_state(3))
-        net = ActorCritic(self.obs_dim, self.act_dim, cfg.net_arch,
-                          torch.Generator().manual_seed(net_seed))
+        net = self.build_net(torch.Generator().manual_seed(net_seed))
         params = {k: v.detach().to(self.device) for k, v in net.state_dict().items()}
         vstate, obs = self.env.reset(seed=env_seed, params=self.env_params)
         dev, E = self.device, cfg.n_envs
@@ -311,6 +342,7 @@ class PPO:
             stat_count=scalar(0.0, torch.float32),
             env_params=self.env_params,
             hparams=HParams.from_config(cfg),
+            image_pipeline=self.env.image_pipeline if self.obs_shape is not None else None,
         )
 
     def apply(self, params: dict, obs):
@@ -333,8 +365,11 @@ class PPO:
         T, E = cfg.n_steps, cfg.n_envs
         if noise is None:
             noise = torch.randn((T, E, self.act_dim), generator=ts.generator, device=dev)
+        # frames stay uint8: 4x smaller than float32
+        obs_shape, obs_dtype = (((self.obs_dim,), torch.float32) if self.obs_shape is None
+                                else (self.obs_shape, torch.uint8))
         traj = Transition(
-            obs=torch.empty((T, E, self.obs_dim), device=dev),
+            obs=torch.empty((T, E) + tuple(obs_shape), dtype=obs_dtype, device=dev),
             action=torch.empty((T, E, self.act_dim), device=dev),
             log_prob=torch.empty((T, E), device=dev),
             value=torch.empty((T, E), device=dev),
@@ -347,7 +382,7 @@ class PPO:
         stat_r, stat_c = ts.stat_return, ts.stat_count
         for t in range(T):
             with timer("policy"):
-                if cfg.normalize:
+                if self.use_obs_norm:
                     norm, n_obs = nrm.normalize_obs(norm, obs, update=True)
                 else:
                     n_obs = obs
@@ -355,9 +390,15 @@ class PPO:
                 action = mean + torch.exp(log_std) * noise[t]
                 traj.obs[t], traj.action[t], traj.value[t] = n_obs, action, value
                 traj.log_prob[t] = gaussian_log_prob(mean, log_std, action)
+            clipped = torch.clamp(action, -1.0, 1.0)
+            if self.obs_shape is None:
+                with timer("env"):
+                    vstate, obs, reward, done, info = self.env.step(vstate, clipped,
+                                                                    ts.env_params)
+            else:  # the image env times its physics ("env") and "render"
+                vstate, obs, reward, done, info = self.env.step(vstate, clipped, ts.env_params,
+                                                                timer=timer)
             with timer("env"):
-                vstate, obs, reward, done, info = self.env.step(
-                    vstate, torch.clamp(action, -1.0, 1.0), ts.env_params)
                 if cfg.normalize:
                     norm, n_reward = nrm.normalize_reward(norm, reward, done, update=True)
                 else:
@@ -370,7 +411,8 @@ class PPO:
                 ep_len = torch.where(done, 0, ep_len)
                 traj.reward[t], traj.done[t], traj.status[t] = n_reward, done, info["done_status"]
         with timer("policy"):
-            n_last = nrm.normalize_obs(norm, obs, update=False)[1] if cfg.normalize else obs
+            n_last = (nrm.normalize_obs(norm, obs, update=False)[1] if self.use_obs_norm
+                      else obs)
             last_value = self.apply(ts.params, n_last)[2]
         ts = ts.replace(normalizer=norm, vstate=vstate, last_obs=obs, ep_return=ep_ret,
                         ep_len=ep_len, stat_return=stat_r, stat_count=stat_c)
@@ -452,7 +494,8 @@ class PPO:
         holds tensors on the device (``kl_stopped`` a bool): ``ep_rew_mean``
         (NaN when no episode finished), ``episodes``, ``completions`` (steps
         whose ``done_status`` is 3), ``timesteps`` (int64) and the losses.
-        ``timer`` (a :class:`PhaseTimer`) splits the update into ``env``,
+        ``timer`` (a :class:`PhaseTimer`) splits the update into ``env``
+        (physics and the reward bookkeeping), ``render`` (image env only),
         ``policy``, ``gae`` and ``update``."""
         ts0 = ts
         ts, traj, last_value = self.rollout(ts, noise, timer)

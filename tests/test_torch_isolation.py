@@ -1,7 +1,8 @@
 """The port stands alone: importing ``gym_puzzles_tpu_torch`` (every module
-that holds a kernel's wrapper, and the learner in ``train``, too), stepping
-each env family on the CPU through both backends and running one PPO update
-load neither JAX, flax, optax, orbax nor the JAX package, and without a CUDA
+that holds a kernel's wrapper, the learner in ``train`` and the pixel
+pipeline, too), stepping each env family on the CPU through both backends,
+and running one PPO update with each policy (MLP; CNN on the image env) load
+neither JAX, flax, optax, orbax nor the JAX package, and without a CUDA
 device ``make`` refuses to pick a device on its own."""
 
 import json
@@ -29,6 +30,8 @@ import gym_puzzles_tpu_torch.engine._cuda_build
 import gym_puzzles_tpu_torch.train.checkpoint, gym_puzzles_tpu_torch.train.cli
 import gym_puzzles_tpu_torch.train.evaluate, gym_puzzles_tpu_torch.train.export
 import gym_puzzles_tpu_torch.train.networks, gym_puzzles_tpu_torch.train.normalize
+import gym_puzzles_tpu_torch.api.image_obs, gym_puzzles_tpu_torch.render.device
+import gym_puzzles_tpu_torch.render.palette
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),
                         ("MultiRobotPuzzle-v2", "pallas"), ("MultiRobotPuzzleHeavy-v2", "fused"),
@@ -42,6 +45,12 @@ algo = PPO(PPOConfig(n_envs=2, n_steps=2, batch_size=2, n_epochs=1, velocity_ite
                      position_iters=1), device="cpu")
 ts, metrics = algo.train_step(algo.init_state())
 assert int(ts.timesteps) == 4 and bool(torch.isfinite(metrics["loss"]))
+from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
+cnn = PPO(PPOConfig(policy="cnn", n_envs=2, n_steps=2, batch_size=4, n_epochs=1),
+          device="cpu", env=DeviceImageVectorEnv(num_envs=2, downsample=16, device="cpu",
+                                                 velocity_iters=2, position_iters=1))
+ts, metrics = cnn.train_step(cnn.init_state())
+assert ts.last_obs.dtype == torch.uint8 and bool(torch.isfinite(metrics["loss"]))
 print(json.dumps(sorted(sys.modules)))
 """
 

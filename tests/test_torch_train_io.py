@@ -16,7 +16,7 @@ from gym_puzzles_tpu.train import normalize as jnrm
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, export
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
-from torch_port_helpers import V0_POLICY_NPZ, export_jax_policy
+from torch_port_helpers import V0_POLICY_NPZ, assert_trees_equal, export_jax_policy
 
 torch.set_num_threads(1)
 
@@ -26,21 +26,6 @@ ITERS = dict(velocity_iters=8, position_iters=4)
 def tiny_cfg(**kw):
     return PPOConfig(**{**dict(env_id="MultiRobotPuzzle-v0", n_envs=2, n_steps=4, batch_size=4,
                                n_epochs=2, seed=3, **ITERS), **kw})
-
-
-def assert_trees_equal(a, b):
-    """Two TrainStates (or metrics dicts) bitwise equal, generator states
-    included; NaN equals NaN."""
-    a, b = ckpt.to_tree(a), ckpt.to_tree(b)
-    assert a.keys() == b.keys()
-    for k in a:
-        if isinstance(a[k], dict):
-            assert_trees_equal(a[k], b[k])
-        elif isinstance(a[k], torch.Tensor):
-            assert a[k].dtype == b[k].dtype, k
-            np.testing.assert_array_equal(a[k].numpy(), b[k].numpy(), err_msg=k)
-        else:
-            assert a[k] == b[k], k
 
 
 @pytest.fixture(scope="module")

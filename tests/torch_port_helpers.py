@@ -245,6 +245,59 @@ def two_island_tick():
 
 
 # --------------------------------------------------------------------------
+# learner states
+# --------------------------------------------------------------------------
+
+
+def assert_trees_equal(a, b):
+    """Two TrainStates (or metrics dicts) bitwise equal, generator states
+    included; NaN equals NaN."""
+    from gym_puzzles_tpu_torch.train import checkpoint as ckpt
+
+    a, b = ckpt.to_tree(a), ckpt.to_tree(b)
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            assert_trees_equal(a[k], b[k])
+        elif isinstance(a[k], torch.Tensor):
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k].numpy(), b[k].numpy(), err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+# --------------------------------------------------------------------------
+# frames of the on-device renderer
+# --------------------------------------------------------------------------
+
+
+def on_edge(frame, where):
+    """Per pixel of ``where`` [h, w]: whether a neighbour (8-connected) of
+    ``frame`` [h, w, 3] has another colour."""
+    h, w, _ = frame.shape
+    pad = np.pad(frame, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    edge = np.zeros((h, w), bool)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            edge |= (pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w] != frame).any(axis=-1)
+    return edge[where]
+
+
+def assert_frames_match(got, want, edge_share=1e-3):
+    """Frames [N, h, w, 3] equal but for at most ``edge_share`` of each
+    frame's pixels, each on an edge of the ``want`` frame (float contraction
+    moves an edge by a pixel); returns the differing pixel count."""
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    n_diff = 0
+    for g, j in zip(got, want):
+        diff = (g != j).any(axis=-1)
+        n_diff += int(diff.sum())
+        assert diff.mean() <= edge_share, f"{diff.mean():.5f} of a frame differs"
+        assert on_edge(j, diff).all(), "a pixel off every edge differs"
+    return n_diff
+
+
+# --------------------------------------------------------------------------
 # the committed policy: the JAX package's slim v0 checkpoint as the port's
 # policy file
 # --------------------------------------------------------------------------
