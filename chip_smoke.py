@@ -39,7 +39,7 @@ Phases (each raises on failure; the script exits non-zero on any):
 8. eval of the committed v0 policy (``gym_puzzles_tpu_torch/policies/``):
    its deterministic actions on the obs of 4096 resets on the card against
    the CPU (1e-5), then 4096 deterministic episodes of at most 2000 steps through
-   ``evaluate_policy_batched`` (fused): completion share (length < 2000) in
+   ``evaluate_policy_batched`` (fused): completion share (``done_status`` 3) in
    [0.82, 0.93] and mean return in [5190, 6800], the bands around the JAX
    package's record for this policy (337/384, mean 5992);
 9. pixels (the image pipeline, whose physics is the fused tick kernel at
@@ -58,7 +58,30 @@ Phases (each raises on failure; the script exits non-zero on any):
    pixel path's shape (256 v0 spawns, 60/20 and 180/60) against
    ``world.step`` on the same inputs (``SPAWN_LIMITS``) and incremental
    against exact trig, then its time per launch beside its bound;
-6. (run after 7, 8 and 9) both kernels' times per variant, beside the mean
+10. host surface: the old-Gym ``GymPuzzleEnv`` (one env, the fused tick
+   kernel at E = 1) for 200 random-action steps on each of v0, v2 and v3:
+   exactly one kernel-A launch per step plus one per reset, wall ms per
+   step; kernel A at E = 1 and E = 13 (the grid's one block, a partial last
+   warp) against ``world.step`` on v0 and Heavy-v0 spawns (``SPAWN_LIMITS``;
+   incremental against exact trig), and its time per launch at E = 1 beside
+   its bound; the host rasterizer (C++ core, built with g++) on card states
+   against the card's renderer at downsample 4 (>= 0.999 of the pixels
+   equal); ``GymnasiumVectorAdapter`` for 20 steps at 4096 envs;
+   ``ImageObsEnv`` for 20 steps (4 launches per step); ``record_video`` of
+   the committed v0 policy for up to 300 steps (frames, ms per frame);
+11. scripted and BC at full width: ``pusher_action`` (offset 70) and
+   ``planner_action`` on Heavy-v0, 4096 envs, reference reset, 180/60, up
+   to the 3,000-step limit: completions, mean return and median completed
+   length beside the JAX package's records (a report, not a gate); then
+   ``bc_train`` at the imitate CLI's width (Heavy-v0, 4096 envs, n_steps 64,
+   batch 8192, 4 epochs) for 3 of its 60 rounds: 192 kernel-A launches, s
+   per round, loss terms; then ``train.cli --resume`` one PPO update from
+   its checkpoint (64 launches);
+12. sweep: ``run_fast_sweep`` at the v0 recipe width (4096 envs,
+   ``train_configs/ppo-mrp-v0.json``), 2 trials x 1 update, each ranked by
+   256 deterministic eval episodes cut to 200 steps: s per trial, ranking,
+   launches;
+6. (run after 7-12) both kernels' times per variant, beside the mean
    and warp-max live pairs per env of the inputs timed (the sweeps visit
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
@@ -82,13 +105,17 @@ import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch import make
+from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
+from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
 from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
+from gym_puzzles_tpu_torch.render import _raster_cpp
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
+from gym_puzzles_tpu_torch.render.raster import render_batch
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
-from gym_puzzles_tpu_torch.train import evaluate
+from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.ppo import PPO, PhaseTimer, PPOConfig
 
@@ -171,6 +198,32 @@ CNN_EVAL_MAX_STEPS = 100
 # an H100 (2.4e-6, the policy of the 3 recipe updates at seed 0)
 CNN_ACTION_TOL = 3e-5
 PIXEL_ITERS = ((60, 20), (VI, PI))  # training and eval solver iterations
+# phase 10: the host surface
+GYM_IDS = ("MultiRobotPuzzle-v0", "MultiRobotPuzzle-v2", "MultiRobotPuzzle-v3")
+GYM_STEPS = 200
+SMALL_BATCHES = (13, 1)  # kernel A's partial warp and its one-env launch
+HOST_RENDER_ENVS = 64  # card states rasterized on the host per variant
+ADAPTER_STEPS = IMAGE_STEPS = 20
+VIDEO_STEPS = 300
+# phase 11: the scripted demonstrators and BC at the JAX package's widths
+# (docs/benchmarks/oracle_push.py; train/imitate.py's CLI defaults), rounds
+# cut from 60 to 3
+SCRIPTED_ENV = "MultiRobotPuzzleHeavy-v0"
+SCRIPTED_OFFSET = 70.0
+SCRIPTED_CHECK_EVERY = 200  # steps between host checks for "every lane finished"
+BC_CONFIG = dict(env_id=SCRIPTED_ENV, n_envs=NUM_ENVS, n_steps=64, batch_size=8192,
+                 n_epochs=4, gamma=0.999, seed=0, env_backend="fused")
+BC_ROUNDS = 3
+# the JAX package's records: docs/benchmarks/oracle_push_hv0_r4.jsonl line 2
+# (the pusher at offset 70, 128 episodes; the pusher has changed since) and
+# docs/BENCHMARKS.md:410-414 (the planner)
+SCRIPTED_RECORDS = {"pusher": "8/128 completed, mean return -34,987, median completed "
+                              "length 249 (r4 record; the pusher has changed since)",
+                    "planner": "30-47/128 completed (docs/BENCHMARKS.md)"}
+# phase 12: 2 trials x 1 update at the v0 recipe's width
+SWEEP_TRIALS = 2
+SWEEP_EVAL_EPISODES = 256
+SWEEP_EVAL_MAX_STEPS = 200
 
 
 def card() -> str:
@@ -528,7 +581,7 @@ def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STE
         finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
     stop.record()
     stop.synchronize()
-    launches = {name: step_cuda.launch_count(name) for name in ("step_fused", "solve_contacts")}
+    launches = launch_counts()
     elapsed_s = start.elapsed_time(stop) / 1e3
 
     name = f"{env_id} backend={backend}"
@@ -684,8 +737,7 @@ def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
                    and not np.isfinite(v)]
             if bad:
                 raise AssertionError(f"{what}: non-finite metrics {bad}")
-        launches = {name: step_cuda.launch_count(name) for name in ("step_fused",
-                                                                     "solve_contacts")}
+        launches = launch_counts()
         want = TRAIN_UPDATES * cfg.n_steps * algo.env.cfg.frameskip
         if launches != {"step_fused": want, "solve_contacts": 0}:
             raise AssertionError(f"{what}: launches {launches}, expected {want} of step_fused "
@@ -772,16 +824,18 @@ def run_eval(card_line):
     torch.cuda.synchronize()
     step_cuda.reset_launch_count()
     t0 = time.perf_counter()
-    ret_mean, ret_std, returns, lengths = evaluate.evaluate_policy_batched(
+    ret_mean, ret_std, returns, lengths, statuses = evaluate.evaluate_policy_batched(
         algo, st, n_episodes=EVAL_EPISODES, deterministic=True, seed=0,
         max_steps=EVAL_MAX_STEPS)
     wall = time.perf_counter() - t0
     lengths = np.asarray(lengths)
-    completions = int((lengths < EVAL_MAX_STEPS).sum())
+    completions = int((np.asarray(statuses) == 3).sum())  # done_status 3: success
     share = completions / EVAL_EPISODES
     print(f"  {EVAL_EPISODES} deterministic episodes (max {EVAL_MAX_STEPS} steps, fused, "
           f"{VI}/{PI}): mean return {ret_mean:.2f}, std {ret_std:.2f}, completions "
-          f"{completions}/{EVAL_EPISODES} = {share:.4f} (band {COMPLETION_BAND}), mean return "
+          f"(done_status 3) {completions}/{EVAL_EPISODES} = {share:.4f} (band "
+          f"{COMPLETION_BAND}; shorter than {EVAL_MAX_STEPS} steps: "
+          f"{int((lengths < EVAL_MAX_STEPS).sum())}), mean return "
           f"band {RETURN_BAND}; median length {float(np.median(lengths)):.0f}; "
           f"{wall:.1f} s wall, {step_cuda.launch_count('step_fused')} launches of step_fused  "
           f"[{card_line}]", flush=True)
@@ -889,12 +943,12 @@ def run_pixel_eval(algo, ts, card_line) -> dict:
     torch.cuda.synchronize()
     step_cuda.reset_launch_count()
     t0 = time.perf_counter()
-    ret_mean, ret_std, returns, lengths = evaluate.evaluate_policy_batched(
+    ret_mean, ret_std, returns, lengths, _statuses = evaluate.evaluate_policy_batched(
         algo, ts, n_episodes=CNN_EVAL_EPISODES, deterministic=True, seed=0,
         max_steps=CNN_EVAL_MAX_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: step_cuda.launch_count(name) for name in ("step_fused", "solve_contacts")}
+    launches = launch_counts()
     # every chunk runs to its end: max_steps steps, plus the reference
     # reset's random step
     steps = CNN_EVAL_MAX_STEPS + 1
@@ -947,6 +1001,350 @@ def time_pixel_kernel(dev, card_line) -> dict:
               f"on {sms} SMs  [{card_line}]", flush=True)
         out[(vi, pi_iters)] = dict(ms=ms, bound=b)
     return out
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the counts were last set to 0."""
+    return {name: step_cuda.launch_count(name) for name in ("step_fused", "solve_contacts")}
+
+
+def expect_launches(what, want_fused):
+    """Raise unless kernel A ran ``want_fused`` times since the counts were
+    set to 0, and the solve kernel not at all."""
+    got = launch_counts()
+    if got != {"step_fused": want_fused, "solve_contacts": 0}:
+        raise AssertionError(f"{what}: launches {got}, expected {want_fused} of step_fused "
+                             "and none of solve_contacts")
+    return got
+
+
+def run_gym_envs(card_line) -> int:
+    """Phase 10: ``GYM_STEPS`` random-action steps of the old-Gym single env
+    on each of ``GYM_IDS`` (a reset after each episode end), the counts set
+    to 0 just before and read just after each: one kernel-A launch per step
+    and per reset.  Returns the launches in all."""
+    rng = np.random.RandomState(0)
+    total = 0
+    for env_id in GYM_IDS:
+        env = GymPuzzleEnv(env_id, seed=0)
+        on_card(env, f"GymPuzzleEnv({env_id})")
+        cfg = env.spec_cfg
+        actions = rng.uniform(-1, 1, (GYM_STEPS, cfg.act_dim)).astype(np.float32)
+        env.reset()
+        for a in actions[:5]:  # warm-up
+            env.step(a)
+        step_cuda.reset_launch_count()
+        t0 = time.perf_counter()
+        obs, resets, ends, step_s = env.reset(), 1, [], 0.0
+        finite = bool(np.isfinite(obs).all())
+        for a in actions:
+            t = time.perf_counter()
+            obs, reward, done, info = env.step(a)
+            step_s += time.perf_counter() - t
+            finite &= bool(np.isfinite(obs).all()) and bool(np.isfinite(reward))
+            if done:
+                ends.append(info["done_status"])
+                obs, resets = env.reset(), resets + 1
+        wall = time.perf_counter() - t0
+        launches = expect_launches(f"GymPuzzleEnv {env_id}", GYM_STEPS + resets)
+        print(f"  GymPuzzleEnv {env_id} (one env, {cfg.velocity_iters}/{cfg.position_iters}): "
+              f"{GYM_STEPS} random-action steps and {resets} resets (done_status of the "
+              f"episode ends: {ends}) in {wall:.3f} s; {1e3 * step_s / GYM_STEPS:.3f} ms per "
+              f"step (wall, obs / reward / done on the host); launches {launches}  "
+              f"[{card_line}]", flush=True)
+        if not (finite and obs.shape == (cfg.obs_dim,) and obs.dtype == np.float32):
+            raise AssertionError(f"GymPuzzleEnv {env_id}: obs {obs.shape} {obs.dtype}, "
+                                 f"finite {finite}")
+        total += launches["step_fused"]
+    return total
+
+
+def check_small_batches(dev, env_id, card_line) -> dict:
+    """Kernel A at ``SMALL_BATCHES`` envs (13: one block whose last warp is
+    partial; 1: one live lane) against ``world.step`` on the same spawns:
+    one plain tick of 13 spawns at 180/60 is the plain version of both (each
+    env's arithmetic is its own), held to ``SPAWN_LIMITS`` with the awake
+    flags equal, and the path's incremental trig against exact.  Then kernel
+    A's time per launch at E = 1 beside its bound from those inputs."""
+    E0 = max(SMALL_BATCHES)
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E0, 4, env_id)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp, cp, _ = world.step(table, bodies, contacts, force, torque, wake, DT, VI, PI)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    out = {}
+    for E in SMALL_BATCHES:
+        cut = lambda x: tree_map(lambda t: t[..., :E].contiguous(), x)  # noqa: E731
+        inputs = tuple(cut(x) for x in (bodies, contacts, force, torque, wake))
+        args = (table,) + inputs + (DT, VI, PI)
+        bk, ck, _ = step_cuda.step_fused(*args, incremental_trig=False)
+        name = f"fused, {env_id} spawns E={E} 1 tick {VI}/{PI}"
+        out[E] = spawn_diffs(name, (bk.pos, bk.angle, ck.normal_impulse),
+                             (bp.pos[..., :E], bp.angle[..., :E], cp.normal_impulse[..., :E]),
+                             cp.touching[..., :E].any(dim=0))
+        if not torch.equal(bk.awake, bp.awake[..., :E]):
+            raise AssertionError(f"{name}: awake flags differ")
+        if not all(bool(torch.isfinite(x).all()) for x in (bk.pos, bk.vel, ck.normal_impulse)):
+            raise AssertionError(f"{name}: kernel output not finite")
+        bi = step_cuda.step_fused(*args)[0]
+        report(f"{name}, incremental vs exact trig",
+               dict(pos=maxdiff(bi.pos, bk.pos), angle=maxdiff(bi.angle, bk.angle)),
+               {k: SPAWN_TRIG_LIMITS[k] for k in ("pos", "angle")})
+    one = tuple(tree_map(lambda t: t[..., :1].contiguous(), x)
+                for x in (bodies, contacts, force, torque, wake))
+    bf, pf, pi = step_cuda.pack(*one)
+    fn = lambda: step_cuda.launch(table, bf, pf, pi, DT, VI, PI)  # noqa: E731
+    fn()
+    ms = cuda_ms(fn, 20)
+    live = world.before_solve(table, *one, DT)[0][0]
+    live = live.solve & (live.count > 0)
+    b = kernel_bound(table, bf, live, VI, PI)
+    print(f"  step_fused at E=1, {env_id} spawn {VI}/{PI}: {ms:.3f} ms per launch; "
+          f"{int(live.sum())} live pairs; bound {b['ms']:.7f} ms ({b['by']}): {b['bytes']} bytes "
+          f"= {b['bytes_ms']:.7f} ms, {b['ops']} f32 ops = {b['ops_ms']:.7f} ms; one one-warp "
+          f"block; world.step on the {E0} envs {plain_ms:.1f} ms  [{card_line}]", flush=True)
+    return dict(diffs=out, ms=ms, bound=b, plain_ms=plain_ms)
+
+
+def check_host_raster(dev, card_line):
+    """The host rasterizer on ``HOST_RENDER_ENVS`` card spawns of each of
+    ``RENDER_CASES``' variants against the card's renderer at downsample 4:
+    the share of equal pixels must reach ``RENDER_EQUAL_SHARE``.  Prints the
+    host raster's ms per full-size frame."""
+    for env_id, (_E, mode) in RENDER_CASES.items():
+        logic = _logic(env_id)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        state, _ = logic.reset_fast(gen, HOST_RENDER_ENVS, logic.default_params())
+        want = make_device_renderer(logic, downsample=4, mode=mode)(state).cpu().numpy()
+        t0 = time.perf_counter()
+        host = render_batch(logic, state, mode=mode)
+        ms = 1e3 * (time.perf_counter() - t0) / HOST_RENDER_ENVS
+        share = float((host[:, ::4, ::4] == want).all(axis=-1).mean())
+        print(f"  host raster {env_id} {mode}, {HOST_RENDER_ENVS} card spawns, frames "
+              f"{tuple(host.shape[1:])}: against the card's renderer at downsample 4 "
+              f"{share:.6f} of pixels equal (limit {RENDER_EQUAL_SHARE}); {ms:.3f} ms per frame "
+              f"on the host  [{card_line}]", flush=True)
+        if share < RENDER_EQUAL_SHARE:
+            raise AssertionError(f"host raster {env_id}: frames differ from the card's")
+
+
+def run_adapter(card_line) -> int:
+    """``GymnasiumVectorAdapter`` for ``ADAPTER_STEPS`` random-action steps at
+    ``NUM_ENVS`` envs (fast autoreset: one launch per step)."""
+    env = GymnasiumVectorAdapter(ENV_ID, NUM_ENVS)
+    on_card(env.env, "GymnasiumVectorAdapter")
+    obs, _info = env.reset(seed=0)
+    acts = np.random.RandomState(1).uniform(-1, 1, (ADAPTER_STEPS, NUM_ENVS, 6)).astype(
+        np.float32)
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    for a in acts:
+        obs, rew, term, trunc, info = env.step(a)
+    wall = time.perf_counter() - t0
+    launches = expect_launches("GymnasiumVectorAdapter", ADAPTER_STEPS)
+    if not (obs.shape == (NUM_ENVS, 28) and rew.shape == (NUM_ENVS,) and term.dtype == bool
+            and trunc.dtype == bool and np.isfinite(obs).all()):
+        raise AssertionError("GymnasiumVectorAdapter: outputs")
+    print(f"  GymnasiumVectorAdapter {ENV_ID}: {ADAPTER_STEPS} steps x {NUM_ENVS} envs in "
+          f"{wall:.3f} s ({1e3 * wall / ADAPTER_STEPS:.3f} ms per step, numpy in and out); "
+          f"launches {launches}  [{card_line}]", flush=True)
+    return launches["step_fused"]
+
+
+def run_image_obs(card_line) -> int:
+    """``ImageObsEnv`` (one v0 env, host frames, frameskip 4) for
+    ``IMAGE_STEPS`` steps: frameskip launches per step and per reset."""
+    env = ImageObsEnv(seed=0)
+    on_card(env, "ImageObsEnv")
+    fs = env._logic.cfg.frameskip
+    acts = np.random.RandomState(2).uniform(-1, 1, (IMAGE_STEPS, 6)).astype(np.float32)
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    obs, resets = env.reset(), 1
+    for a in acts:
+        obs, reward, done, info = env.step(a)
+        if done:
+            obs, resets = env.reset(), resets + 1
+    wall = time.perf_counter() - t0
+    launches = expect_launches("ImageObsEnv", fs * (IMAGE_STEPS + resets))
+    if obs.shape != env.observation_shape or obs.dtype != np.uint8:
+        raise AssertionError(f"ImageObsEnv: obs {obs.shape} {obs.dtype}")
+    print(f"  ImageObsEnv: {IMAGE_STEPS} steps, {resets} resets, obs {obs.shape} uint8, "
+          f"{1e3 * wall / (IMAGE_STEPS + resets):.3f} ms per step or reset ({fs} ticks and a "
+          f"host frame each); launches {launches}  [{card_line}]", flush=True)
+    return launches["step_fused"]
+
+
+def run_video(card_line) -> int:
+    """``record_video`` of the committed v0 policy for up to ``VIDEO_STEPS``
+    steps: the frames written equal the frames returned; one launch per step
+    and one for the reset."""
+    cfg = PPOConfig(env_id=ENV_ID, n_envs=1, n_steps=2, batch_size=2, n_epochs=1)
+    algo = PPO(cfg)
+    on_card(algo, "the video learner")
+    st = ckpt.restore_policy(POLICY_NPZ, algo.init_state())
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        step_cuda.reset_launch_count()
+        t0 = time.perf_counter()
+        frames = evaluate.record_video(algo, st, f"{tmp}/v0_r4", n_steps=VIDEO_STEPS, seed=0)
+        wall = time.perf_counter() - t0
+        with np.load(f"{tmp}/v0_r4.npz") as f:
+            saved = f["frames"]
+    launches = expect_launches("record_video", len(frames) + 1)
+    if not (np.array_equal(saved, frames) and frames.shape[1:] == (480, 640, 3)):
+        raise AssertionError("record_video: the .npz frames differ from the returned ones")
+    print(f"  record_video of {POLICY_NPZ.name}: {len(frames)} frames (max {VIDEO_STEPS}; an "
+          f"episode ends at success) in {wall:.3f} s, {1e3 * wall / len(frames):.3f} ms per "
+          f"frame (step on the card, host raster 640x480, the compressed .npz); launches {launches}  "
+          f"[{card_line}]", flush=True)
+    return launches["step_fused"]
+
+
+def roll_demonstrator(dev, name, controller, card_line) -> dict:
+    """Phase 11: ``controller`` on ``SCRIPTED_ENV`` at ``NUM_ENVS`` envs from
+    the reference reset at 180/60, up to the registered step limit, every
+    lane's return, length and ``done_status`` kept from its first ``done``
+    (a host check every ``SCRIPTED_CHECK_EVERY`` steps ends the roll when
+    every lane is done).  A report, not a gate."""
+    env = make(SCRIPTED_ENV, num_envs=NUM_ENVS, auto_reset=False, reset_mode="reference")
+    on_card(env, f"the {name} env")
+    A, max_steps = env.cfg.num_agents, env.cfg.max_episode_steps
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    state, obs = env.reset(seed=0)
+    finished = torch.zeros((NUM_ENVS,), dtype=torch.bool, device=dev)
+    total = torch.zeros((NUM_ENVS,), device=dev)
+    length = torch.zeros((NUM_ENVS,), dtype=torch.int32, device=dev)
+    status = torch.zeros((NUM_ENVS,), dtype=torch.int32, device=dev)
+    steps = 0
+    while steps < max_steps:
+        for _ in range(min(SCRIPTED_CHECK_EVERY, max_steps - steps)):
+            state, obs, reward, done, info = env.step(state, controller(obs, A))
+            total = total + torch.where(finished, 0.0, reward)
+            length = length + (~finished).int()
+            status = torch.where(finished, status, info["done_status"])
+            finished = finished | done
+            steps += 1
+        if bool(finished.all()):
+            break
+    wall = time.perf_counter() - t0
+    launches = expect_launches(name, steps + 1)
+    done_ok = status == 3
+    n_done = int(done_ok.sum())
+    med = float(length[done_ok].float().median()) if n_done else float("nan")
+    out = dict(completions=n_done, mean_return=float(total.mean()), median_completed_len=med,
+               steps=steps, launches=launches["step_fused"])
+    if not bool(torch.isfinite(total).all()):
+        raise AssertionError(f"{name}: non-finite returns")
+    print(f"  {name} on {SCRIPTED_ENV}, {NUM_ENVS} envs, reference reset, "
+          f"{env.cfg.velocity_iters}/{env.cfg.position_iters}: "
+          f"{n_done}/{NUM_ENVS} completed ({n_done / NUM_ENVS:.4f}), mean return "
+          f"{out['mean_return']:.2f}, median completed length {med:.0f}; ended out of bounds "
+          f"{int(((status == 1) | (status == 2)).sum())}; {steps} steps in {wall:.1f} s "
+          f"({1e3 * wall / steps:.3f} ms per step); launches {launches}; JAX package record: "
+          f"{SCRIPTED_RECORDS[name]}  [{card_line}]", flush=True)
+    return out
+
+
+def run_bc(card_line) -> dict:
+    """Phase 11's ``bc_train`` at ``BC_CONFIG`` for ``BC_ROUNDS`` rounds
+    (``n_steps`` launches each), then ``train.cli --resume`` one PPO update
+    from its checkpoint (``n_steps`` launches)."""
+    cfg = PPOConfig(**BC_CONFIG)
+    print(f"  bc_train {cfg.env_id}, {cfg.n_envs} envs, n_steps {cfg.n_steps}, batch "
+          f"{cfg.batch_size}, {cfg.n_epochs} epochs, the pusher at offset {SCRIPTED_OFFSET}: "
+          f"rounds cut from 60 to {BC_ROUNDS}  [{card_line}]", flush=True)
+    stamps, rows = [], []
+
+    def log_fn(line):
+        stamps.append(time.perf_counter())
+        rows.append(json.loads(line))
+
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    algo, ts = imitate.bc_train(cfg, rounds=BC_ROUNDS, offset_px=SCRIPTED_OFFSET, log_every=1,
+                                log_fn=log_fn)
+    launches = expect_launches("bc_train", BC_ROUNDS * cfg.n_steps)
+    on_card(algo, "bc_train")
+    secs = np.diff([t0] + stamps)
+    for row, sec in zip(rows, secs):
+        print(f"  BC round {row['bc_round'] + 1}: {sec:.3f} s"
+              + (" (with the learner's set-up)" if row["bc_round"] == 0 else "")
+              + f"; loss {row['loss']:.6g}, pi_mse {row['pi_mse']:.6g}, v_mse "
+              f"{row['v_mse']:.6g}  [{card_line}]", flush=True)
+    per_round = cfg.n_steps * cfg.n_envs
+    if int(ts.timesteps) != BC_ROUNDS * per_round or not all(
+            np.isfinite([r["loss"], r["pi_mse"], r["v_mse"]]).all() for r in rows):
+        raise AssertionError(f"bc_train: timesteps {int(ts.timesteps)}, rows {rows}")
+    print(f"  bc_train: {BC_ROUNDS} rounds in {sum(secs):.3f} s; launches {launches}  "
+          f"[{card_line}]", flush=True)
+
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        path = f"{tmp}/{cfg.env_id}"
+        ckpt.save(path, ts, ckpt.step_count(ts.timesteps))
+        torch.cuda.synchronize()
+        step_cuda.reset_launch_count()
+        t0 = time.perf_counter()
+        final = cli.main(["--env", cfg.env_id, "--n_envs", str(cfg.n_envs), "--n_steps",
+                          str(cfg.n_steps), "--batch_size", str(cfg.batch_size), "--n_epochs",
+                          str(cfg.n_epochs), "--gamma", str(cfg.gamma), "--seed", "0",
+                          "--total_timesteps", str(per_round), "--disable_wandb", "--resume",
+                          path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    resume_launches = expect_launches("train.cli --resume", cfg.n_steps)
+    moved = sum(int((final.params[k] != ts.params[k]).sum()) for k in ts.params)
+    if int(final.timesteps) != int(ts.timesteps) + per_round or not moved:
+        raise AssertionError(f"resume: timesteps {int(final.timesteps)}, {moved} params moved")
+    print(f"  train.cli --resume from the BC checkpoint (step {int(ts.timesteps)}): one PPO "
+          f"update in {wall:.3f} s (the CLI's set-up included), {moved} params moved, "
+          f"timesteps {int(final.timesteps)}; launches {resume_launches}  [{card_line}]",
+          flush=True)
+    return dict(launches=launches["step_fused"], resume_launches=resume_launches["step_fused"],
+                round_s=[float(x) for x in secs])
+
+
+def run_sweep(card_line) -> dict:
+    """Phase 12: ``run_fast_sweep`` at the v0 recipe's width, ``SWEEP_TRIALS``
+    trials of one update each, each ranked by ``SWEEP_EVAL_EPISODES``
+    deterministic episodes cut to ``SWEEP_EVAL_MAX_STEPS`` steps: a trial
+    launches kernel A ``n_steps`` times, and its eval ``SWEEP_EVAL_MAX_STEPS``
+    + 1 times (the reference reset's step)."""
+    cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES)
+    per_update = cfg.n_steps * cfg.n_envs
+    stamps = []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        print(f"  trial {line}  [{card_line}]", flush=True)
+
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    results = sweep.run_fast_sweep(cfg, trials=SWEEP_TRIALS, budget_timesteps=per_update, seed=0,
+                                   eval_episodes=SWEEP_EVAL_EPISODES,
+                                   eval_max_steps=SWEEP_EVAL_MAX_STEPS, log=log)
+    launches = expect_launches("run_fast_sweep",
+                               SWEEP_TRIALS * (cfg.n_steps + SWEEP_EVAL_MAX_STEPS + 1))
+    secs = np.diff([t0] + stamps)
+    scores = [r["score"] for r in results]
+    best = results[0]["final_state"]
+    if not (scores == sorted(scores, reverse=True) and np.isfinite(scores).all()
+            and best is not None and best.params["log_std"].device.type == "cuda"
+            and all(r["final_state"] is None for r in results[1:])):
+        raise AssertionError(f"run_fast_sweep: ranking {scores}")
+    print(f"  run_fast_sweep {cfg.env_id}, {cfg.n_envs} envs, {SWEEP_TRIALS} trials x 1 update, "
+          f"eval {SWEEP_EVAL_EPISODES} episodes x {SWEEP_EVAL_MAX_STEPS} steps: "
+          + ", ".join(f"{s:.3f}" for s in secs) + " s per trial (the first with the "
+          f"learner's set-up); ranking (trial, eval mean) "
+          f"{[(r['trial'], round(r['score'], 2)) for r in results]}; launches {launches}  "
+          f"[{card_line}]", flush=True)
+    return dict(launches=launches["step_fused"], trial_s=[float(x) for x in secs])
 
 
 def main() -> int:
@@ -1021,6 +1419,36 @@ def main() -> int:
     print(f"  pixel path: render {render_ms:.3f} ms per step of {CNN_CONFIG['n_envs']} envs; "
           f"eval {pixel_eval['ms_per_step']:.2f} ms per step  [{card_line}]", flush=True)
 
+    print("== 10. host surface: GymPuzzleEnv, kernel A at E = 1 and 13, host raster, "
+          "gymnasium adapter, ImageObsEnv, record_video", flush=True)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    raster_lib, _log = _raster_cpp.build()
+    print(f"  host rasterizer {raster_lib.name} (g++ -O3 -march=native) ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gym_launches = run_gym_envs(card_line)
+    small = {env_id: check_small_batches(dev, env_id, card_line)
+             for env_id in (ENV_ID, "MultiRobotPuzzleHeavy-v0")}
+    check_host_raster(dev, card_line)
+    run_adapter(card_line)
+    run_image_obs(card_line)
+    run_video(card_line)
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    print("== 11. scripted demonstrators and BC at full width", flush=True)
+    t_phase = time.perf_counter()
+    demos = {"pusher": roll_demonstrator(
+                 dev, "pusher", lambda obs, A: scripted.pusher_action(obs, A, SCRIPTED_OFFSET),
+                 card_line),
+             "planner": roll_demonstrator(dev, "planner", scripted.planner_action, card_line)}
+    bc = run_bc(card_line)
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    print("== 12. sweep", flush=True)
+    t_phase = time.perf_counter()
+    sweep_run = run_sweep(card_line)
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -1040,6 +1468,15 @@ def main() -> int:
              pixel_train_launches=pixel_launches["step_fused"],
              pixel_ms=pixel_kernel[PIXEL_ITERS[0]]["ms"],
              pixel_bound_ms=pixel_kernel[PIXEL_ITERS[0]]["bound"]["ms"],
+             gym_env_launches=gym_launches,
+             e1_ms=small[ENV_ID]["ms"], e1_bound_ms=small[ENV_ID]["bound"]["ms"],
+             e1_bound_by=small[ENV_ID]["bound"]["by"],
+             e1_max_abs_err=small[ENV_ID]["diffs"][1]["max"],
+             e13_plain_ms=small[ENV_ID]["plain_ms"],
+             e13_max_abs_err=max(v["diffs"][13]["max"] for v in small.values()),
+             scripted_launches=sum(d["launches"] for d in demos.values()),
+             bc_launches=bc["launches"], bc_resume_launches=bc["resume_launches"],
+             sweep_launches=sweep_run["launches"],
              max_abs_err=spawn_diff["max"],
              ms=v0["fused_ms"], plain_ms=plain_ms,
              bound_ms=v0["fused_bound"]["ms"], bound_by=v0["fused_bound"]["by"]),

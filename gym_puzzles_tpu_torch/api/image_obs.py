@@ -1,21 +1,26 @@
-"""v0 image-observation pipeline on the device (port of
-``gym_puzzles_tpu/api/image_obs.py::DeviceImageVectorEnv``).
+"""v0 image-observation pipeline (port of ``gym_puzzles_tpu/api/image_obs.py``).
 
 The reference's ``obs_type='image'`` capability: stacked
 ``(h * obs_depth, w, 3)`` uint8 frames with frameskip 4
 (multi_robot_puzzle_00.py:161-162,197-200), declared but off by default
-there.  Here thousands of envs render their frames on the device
-(``render/device.py``) after every step and carry their frame stacks there,
-so a CNN policy trains on pixels with no host round trip.  The physics
-steps through the port's :class:`~gym_puzzles_tpu_torch.api.vector.VectorEnv`
-(by default the fused tick kernel, ``frameskip`` launches per step).
+there.  Two implementations, whose physics steps through the port's
+:class:`~gym_puzzles_tpu_torch.api.vector.VectorEnv` (by default the fused
+tick kernel, ``frameskip`` launches per step):
+
+* :class:`ImageObsEnv` -- one env, old-Gym API, frames rasterized on the
+  host (``render/raster.py``) from the state after each step;
+* :class:`DeviceImageVectorEnv` -- thousands of envs render their frames on
+  the device (``render/device.py``) after every step and carry their frame
+  stacks there, so a CNN policy trains on pixels with no host round trip.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch.api.registry import _image_logic
@@ -23,6 +28,61 @@ from gym_puzzles_tpu_torch.api.vector import VectorEnv
 from gym_puzzles_tpu_torch.engine.types import Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
+
+
+class ImageObsEnv:
+    """Single-env image-observation variant of MultiRobotPuzzle-v0: obs are
+    ``obs_depth`` stacked host-rendered frames ``(h * obs_depth, w, 3)``
+    uint8, oldest first, zero-padded after a reset; each step runs
+    ``frameskip`` engine ticks.  The env is a one-env ``VectorEnv`` (no
+    autoreset, the reference reset, the fused tick) on ``device`` (default
+    ``cuda``; with no CUDA and no device named this raises), seeded by
+    ``seed``."""
+
+    def __init__(self, env_id: str = "MultiRobotPuzzle-v0", obs_depth: int = 3,
+                 frameskip: int = 4, downsample: int = 1, seed: int = 0, device=None,
+                 velocity_iters: int | None = None, position_iters: int | None = None):
+        logic = _image_logic(env_id, frameskip, "t", velocity_iters, position_iters)
+        if logic.cfg.variant != "v0":
+            raise ValueError(f"image obs is a v0 capability, got {env_id}")
+        self._env = VectorEnv(logic, 1, auto_reset=False, reset_mode="reference",
+                              device=device, backend="fused")
+        self._env.generator.manual_seed(int(seed))
+        self._logic = logic
+        self._params = self._env.default_params()
+        self._state = None
+        self.device = self._env.device
+        self.obs_depth = obs_depth
+        self.downsample = downsample
+        self._frames = collections.deque(maxlen=obs_depth)
+        self.observation_shape = (480 // downsample * obs_depth, 640 // downsample, 3)
+
+    def _frame(self):
+        from gym_puzzles_tpu_torch.render.raster import render_batch
+
+        img = render_batch(self._logic, self._state, [0])[0]
+        if self.downsample > 1:
+            img = img[:: self.downsample, :: self.downsample]
+        return img
+
+    def _obs(self):
+        while len(self._frames) < self.obs_depth:
+            self._frames.appendleft(np.zeros_like(self._frames[0]))
+        return np.concatenate(list(self._frames), axis=0)
+
+    def reset(self):
+        self._state, _obs = self._env.reset(seed=None, params=self._params)
+        self._frames.clear()
+        self._frames.append(self._frame())
+        return self._obs()
+
+    def step(self, action):
+        action = torch.as_tensor(np.asarray(action, np.float32)[None], device=self.device)
+        self._state, _obs, reward, done, info = self._env.step(self._state, action, self._params)
+        self._frames.append(self._frame())
+        return self._obs(), float(reward[0]), bool(done[0]), {
+            "done_status": int(info["done_status"][0]),
+        }
 
 
 @dataclasses.dataclass

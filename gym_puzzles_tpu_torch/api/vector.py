@@ -29,6 +29,10 @@ On the CPU both run the plain PyTorch engine.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch.envs import common as cm
@@ -86,11 +90,12 @@ class VectorEnv:
         # the random step does not count against the episode clock
         return state.replace(t=torch.zeros_like(state.t)), obs
 
-    def reset(self, seed: int = 0, params: RewardParams | None = None):
-        """Seed the env's generator and spawn every env.
-        Returns (state, obs [E, obs_dim])."""
+    def reset(self, seed: int | None = 0, params: RewardParams | None = None):
+        """Seed the env's generator (``seed=None`` goes on with its stream)
+        and spawn every env.  Returns (state, obs [E, obs_dim])."""
         params = self.default_params() if params is None else params
-        self.generator.manual_seed(int(seed))
+        if seed is not None:
+            self.generator.manual_seed(int(seed))
         state, obs = self._reset_batch(params)
         return state, obs.T
 
@@ -106,3 +111,31 @@ class VectorEnv:
             state = cm.select(done, r_state, state)
             obs = torch.where(done, r_obs, obs)
         return state, obs.T, reward, done, info
+
+    @functools.cached_property
+    def single_observation_space(self):
+        return _box_space(self.cfg.obs_dim)
+
+    @functools.cached_property
+    def single_action_space(self):
+        return _box_space(self.cfg.act_dim, low=-1.0, high=1.0)
+
+
+@dataclasses.dataclass
+class Box:
+    """Stand-in for ``gymnasium.spaces.Box`` where gymnasium is missing."""
+
+    low: float
+    high: float
+    shape: tuple
+    dtype: str = "float32"
+
+
+def _box_space(dim, low=float("-inf"), high=float("inf")):
+    """A gymnasium Box of ``dim`` float32 values when gymnasium imports, else
+    the :class:`Box` stand-in."""
+    try:
+        from gymnasium import spaces
+    except ImportError:
+        return Box(low, high, (dim,))
+    return spaces.Box(low=low, high=high, shape=(dim,), dtype=np.float32)

@@ -4,7 +4,8 @@ binding, the world table and the launch counts.
 * Build: one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` per
   kernel source into a shared library with a plain C interface, at first
   use, into ``_build/`` beside this package (listed in ``.gitignore``),
-  keyed by a hash of the sources and flags.
+  keyed by a hash of the sources and flags (:func:`build_library`, which
+  the host rasterizer's g++ build shares).
 * Binding: ``ctypes``; pointers and the stream go as ``c_void_p``.  A kernel
   runs on ``torch.cuda.current_stream()``; its C function returns
   ``cudaGetLastError()`` and the wrapper raises when it is not 0.
@@ -173,6 +174,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
+def build_library(name: str, cmd: list, sources: list, key: str,
+                  build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+    """``cmd + ["-o", <library>, sources[0]]`` into ``<build_dir>/<name>_<hash>.so``,
+    the hash taken over ``key`` (the flags) and the bytes of every source
+    (``sources[0]`` and the headers it includes), unless that library
+    exists.  Returns (library path, the compiler's output); raises with the
+    compiler's output when it fails."""
+    digest = hashlib.sha1(key.encode())
+    for path in sources:
+        digest.update(Path(path).read_bytes())
+    lib = Path(build_dir) / f"{name}_{digest.hexdigest()[:16]}.so"
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, log_path.read_text() if log_path.exists() else ""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(sources[0])], capture_output=True,
+                          text=True, check=False)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+    return lib, log
+
+
 KERNELS: dict[str, "CudaKernel"] = {}
 
 
@@ -197,23 +224,8 @@ class CudaKernel:
         build of the same sources and flags exists.  Returns (library path,
         the compiler's output -- ptxas registers, stack frame and spills)."""
         flags = NVCC_FLAGS + tuple(f"-D{d}" for d in self.defines)
-        digest = hashlib.sha1(" ".join(flags).encode())
-        for name in (self.source,) + HEADERS:
-            digest.update((CSRC / name).read_bytes())
-        lib = Path(build_dir) / f"{self.name}_{digest.hexdigest()[:16]}.so"
-        log_path = lib.with_suffix(".log")
-        if lib.exists():
-            return lib, log_path.read_text() if log_path.exists() else ""
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / self.source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-        return lib, log
+        sources = [CSRC / self.source] + [CSRC / h for h in HEADERS]
+        return build_library(self.name, [_nvcc(), *flags], sources, " ".join(flags), build_dir)
 
     def load(self):
         with self._lock:

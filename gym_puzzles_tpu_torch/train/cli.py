@@ -209,5 +209,10 @@ def main(argv=None):
     return final
 
 
+def script_main():
+    """Console-script entry: swallow main()'s return so sys.exit(...) is 0."""
+    main()
+
+
 if __name__ == "__main__":
     main()

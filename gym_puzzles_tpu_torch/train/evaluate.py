@@ -5,14 +5,16 @@ The policy runs with its normalizer frozen (VecNormalize training=False,
 test.py:66-68), deterministic (the mean action) or stochastic, in a
 dedicated eval env: no autoreset, the reference's reset (one random step),
 the registered episode limit and, unless overridden, the reference's 180/60
-solver iterations.  The eval env always rides the fused tick kernel
-(``backend='fused'``), which takes any batch size.  A pixel policy
+solver iterations.  The eval env rides the fused tick kernel
+(``backend='fused'``, any batch size; the plain engine on the CPU).  A pixel policy
 (``policy='cnn'``) is evaluated on an image env with its training run's
 image pipeline (obs depth, frameskip, downsample, mode, block shape), and
-its obs are never normalized.  Video recording waits for the host
-rasterizer.
+its obs are never normalized.  :func:`record_video` rolls one episode and
+renders each state with the host rasterizer.
 
-Completions are counted by ``length < max_steps``, never from the returns.
+A completion is an episode that ended with ``done_status`` 3 (success); on
+v2 an episode also ends when an agent or the block leaves the bounds (status
+1 or 2), and a timeout ends with status 0.
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ def _image_pipeline(algo):
     return algo.env.image_pipeline
 
 
+def _tick(device) -> str:
+    """The engine tick of an env on ``device``: ``'fused'`` (the fused tick
+    kernel) on the card, ``'plain'`` (``world.step``) on the CPU."""
+    return "fused" if torch.device(device).type == "cuda" else "plain"
+
+
 def make_eval_env(env_id: str, n: int, device, velocity_iters=None, position_iters=None,
                   image_cfg=None):
     """Eval env of ``n`` lanes: auto_reset off, reference reset, fused tick;
@@ -45,7 +53,7 @@ def make_eval_env(env_id: str, n: int, device, velocity_iters=None, position_ite
     from gym_puzzles_tpu_torch.api.registry import make
 
     # stderr, so that `evaluate ... > out.json` stays JSON
-    print(f"# eval env: {env_id} n={n} backend=fused"
+    print(f"# eval env: {env_id} n={n} backend={_tick(device)}"
           + (f" image pipeline {image_cfg}" if image_cfg is not None else ""), file=sys.stderr)
     iters = dict(velocity_iters=velocity_iters, position_iters=position_iters)
     if image_cfg is not None:
@@ -113,9 +121,11 @@ def evaluate_policy_batched(algo, train_state, n_episodes: int = 64,
     ``chunk``-step segments with one host check per segment for "every lane
     finished"; a lane's reward and length stop counting once it is done.
 
-    -> (mean_return, std_return, returns list, lengths list) over
-    ``n_episodes`` episodes; ``lengths`` are the steps until done
-    (``max_steps`` for a timeout)."""
+    -> (mean_return, std_return, returns list, lengths list, statuses list)
+    over ``n_episodes`` episodes; ``lengths`` are the steps until done
+    (``max_steps`` for a timeout), ``statuses`` each lane's ``done_status``
+    at its first ``done`` (3 success, 1 / 2 out of bounds on v2, 0 for a
+    timeout or a lane still running at ``max_steps``)."""
     env = make_eval_env(algo.cfg.env_id, n_episodes, algo.device, velocity_iters,
                         position_iters, _image_pipeline(algo))
     params = env_params if env_params is not None else env.default_params()
@@ -127,29 +137,73 @@ def evaluate_policy_batched(algo, train_state, n_episodes: int = 64,
     finished = torch.zeros((n_episodes,), dtype=torch.bool, device=dev)
     total = torch.zeros((n_episodes,), dtype=torch.float32, device=dev)
     length = torch.zeros((n_episodes,), dtype=torch.int32, device=dev)
+    status = torch.zeros((n_episodes,), dtype=torch.int32, device=dev)
     remaining = max_steps
     while remaining > 0:
         n = min(chunk, remaining)  # the last chunk keeps max_steps exact
         for _ in range(n):
             action = policy_action(algo, train_state.params, train_state.normalizer, obs,
                           deterministic, gen)
-            state, obs, reward, done, _ = env.step(state, action, params)
+            state, obs, reward, done, info = env.step(state, action, params)
             total = total + torch.where(finished, 0.0, reward)
             length = length + (~finished).int()
+            status = torch.where(finished, status, info["done_status"])
             finished = finished | done
         remaining -= n
         if bool(finished.all()):
             break
     totals = total.cpu().numpy()
     return (float(totals.mean()), float(totals.std()), totals.tolist(),
-            length.cpu().tolist())
+            length.cpu().tolist(), status.cpu().tolist())
+
+
+def eval_backend(algo) -> str:
+    """What the eval env runs: the image env's name for a pixel policy, else
+    its engine tick (:func:`_tick`)."""
+    return "device-image" if algo.obs_shape is not None else _tick(algo.device)
+
+
+@torch.no_grad()
+def record_video(algo, train_state, path: str, n_steps: int = 300, seed: int = 0,
+                 mode: str = "human_vision", fps: int = 50, velocity_iters: int | None = None,
+                 position_iters: int | None = None):
+    """Roll one deterministic episode (at most ``n_steps`` steps) in a
+    one-lane eval env on ``algo.device`` and render the state before each
+    step with the host rasterizer.  Writes ``path``.npz (``frames`` [N, H, W,
+    3] uint8, ``fps``) always and ``path``.gif when PIL imports; returns the
+    frames."""
+    from gym_puzzles_tpu_torch.render.raster import render_batch
+
+    env = make_eval_env(algo.cfg.env_id, 1, algo.device, velocity_iters, position_iters,
+                        _image_pipeline(algo))
+    params = env.default_params()
+    state, obs = env.reset(seed=seed, params=params)
+    frames = []
+    for _ in range(n_steps):
+        env_state = state.vec if algo.obs_shape is not None else state
+        frames.append(render_batch(env.logic, env_state, [0], mode=mode)[0])
+        action = policy_action(algo, train_state.params, train_state.normalizer, obs, True)
+        state, obs, reward, done, _ = env.step(state, action, params)
+        if bool(done[0]):
+            break
+    frames = np.stack(frames)
+    np.savez_compressed(path + ".npz", frames=frames, fps=fps)
+    try:
+        from PIL import Image
+    except ImportError:
+        return frames
+    imgs = [Image.fromarray(f) for f in frames[:: max(1, fps // 10)]]
+    imgs[0].save(path + ".gif", save_all=True, append_images=imgs[1:], duration=1000 // 10,
+                 loop=0)
+    return frames
 
 
 def main(argv=None):
     """``python -m gym_puzzles_tpu_torch.train.evaluate``: restore a policy
     (a checkpoint directory or a policy ``.npz``), evaluate N episodes and
-    print one JSON line (returns, lengths, completions = episodes shorter
-    than the step limit)."""
+    print one JSON line (returns; batched: lengths, each episode's
+    ``done_status`` and completions = episodes that ended in success),
+    optionally record one episode's video."""
     from gym_puzzles_tpu_torch import convert
     from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
     from gym_puzzles_tpu_torch.train import checkpoint as ckpt
@@ -185,6 +239,10 @@ def main(argv=None):
                         "reference's 180; fewer only for smoke runs)")
     p.add_argument("--position_iters", default=None, type=int,
                    help="solver position iterations of the eval env (default 60)")
+    p.add_argument("--video", default=None, type=str,
+                   help="record one episode to PATH.npz (and PATH.gif where PIL imports)")
+    p.add_argument("--video_mode", default="human_vision",
+                   choices=["human_vision", "agent_vision"])
     args = p.parse_args(argv)
 
     config = {}
@@ -214,7 +272,7 @@ def main(argv=None):
 
     lengths = None
     if args.batched:
-        mean, std, returns, lengths = evaluate_policy_batched(
+        mean, std, returns, lengths, statuses = evaluate_policy_batched(
             algo, state, n_episodes=args.n_episodes, seed=args.seed,
             max_steps=args.max_steps, deterministic=not args.stochastic, **iters)
     else:
@@ -230,16 +288,26 @@ def main(argv=None):
            "device": (torch.cuda.get_device_name(algo.device) if algo.device.type == "cuda"
                       else str(algo.device)),
            "policy": cfg.policy, "image_pipeline": _image_pipeline(algo),
-           "eval_backend": "fused", "batched": args.batched,
+           "eval_backend": eval_backend(algo), "batched": args.batched,
            "eval_solver_iters": [args.velocity_iters or ecfg.velocity_iters,
                                  args.position_iters or ecfg.position_iters],
            "max_steps": max_steps, "mean_return": mean, "std_return": std,
            "returns": returns}
     if lengths is not None:
         row["lengths"] = lengths
-        row["completions"] = sum(1 for n in lengths if n < max_steps)
+        row["done_status"] = statuses
+        row["completions"] = sum(1 for st in statuses if st == 3)
     print(json.dumps(row))
+    if args.video:
+        frames = record_video(algo, state, args.video, seed=args.seed, mode=args.video_mode,
+                              **iters)
+        print(f"video: {len(frames)} frames written to {args.video}.npz")
     return mean, std, returns
+
+
+def script_main():
+    """Console-script entry: swallow main()'s return so sys.exit(...) is 0."""
+    main()
 
 
 if __name__ == "__main__":

@@ -233,27 +233,32 @@ def compute_gae(traj: Transition, last_value, gamma: float, gae_lambda: float):
 
 
 @torch.no_grad()
-def adam_step(params: dict, grads: list, opt: AdamState, hp: HParams):
-    """Global-norm clip, ``optax.scale_by_adam`` (eps added after the square
-    root) and a ``-learning_rate`` step -> (params, opt_state).  Out of
-    place: the inputs are left as they were."""
+def adam_update(params: dict, grads: list, opt: AdamState, lr: float, eps: float = ADAM_EPS):
+    """``optax.scale_by_adam`` (b1 0.9, b2 0.999, ``eps`` added after the
+    square root) and a ``-lr`` step -> (params, opt_state).  Out of place:
+    the inputs are left as they were."""
     keys = list(params)
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    clip = torch.clamp(hp.max_grad_norm / (g_norm + 1e-6), max=1.0)
-    g = torch._foreach_mul(grads, clip)
-    mu = torch._foreach_add(torch._foreach_mul(g, 1 - ADAM_B1),
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1 - ADAM_B1),
                             torch._foreach_mul([opt.mu[k] for k in keys], ADAM_B1))
-    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2),
+    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - ADAM_B2),
                             torch._foreach_mul([opt.nu[k] for k in keys], ADAM_B2))
     count = opt.count + 1
     bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count))
     bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count))
-    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), ADAM_EPS)
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
     step = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-    new = torch._foreach_add([params[k] for k in keys],
-                             torch._foreach_mul(step, -hp.learning_rate))
+    new = torch._foreach_add([params[k] for k in keys], torch._foreach_mul(step, -lr))
     return (dict(zip(keys, new)),
             AdamState(mu=dict(zip(keys, mu)), nu=dict(zip(keys, nu)), count=count))
+
+
+@torch.no_grad()
+def adam_step(params: dict, grads: list, opt: AdamState, hp: HParams):
+    """The PPO update's optimizer: global-norm clip to ``hp.max_grad_norm``,
+    then :func:`adam_update` at ``hp.learning_rate``."""
+    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    clip = torch.clamp(hp.max_grad_norm / (g_norm + 1e-6), max=1.0)
+    return adam_update(params, torch._foreach_mul(grads, clip), opt, hp.learning_rate)
 
 
 class PPO:

@@ -1,9 +1,12 @@
 """The port stands alone: importing ``gym_puzzles_tpu_torch`` (every module
-that holds a kernel's wrapper, the learner in ``train`` and the pixel
-pipeline, too), stepping each env family on the CPU through both backends,
-and running one PPO update with each policy (MLP; CNN on the image env) load
-neither JAX, flax, optax, orbax nor the JAX package, and without a CUDA
-device ``make`` refuses to pick a device on its own."""
+that holds a kernel's wrapper, the learner in ``train``, the pixel pipeline,
+the host surface -- old-Gym adapters, host rasterizer and its C++ loader,
+viewer, teleop -- and the extras: scripted controllers, imitation, sweeps,
+profiling), stepping each env family on the CPU through both backends,
+running one PPO update with each policy (MLP; CNN on the image env), a
+single env step with a host-rendered frame, a BC round and a one-trial
+sweep load neither JAX, flax, optax, orbax nor the JAX package; and without
+a CUDA device no entry point picks a device on its own."""
 
 import json
 import subprocess
@@ -14,6 +17,10 @@ import pytest
 import torch
 
 import gym_puzzles_tpu_torch as gpt
+from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
+from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
+from gym_puzzles_tpu_torch.train import imitate, sweep
+from gym_puzzles_tpu_torch.train.ppo import PPOConfig
 
 torch.set_num_threads(1)
 
@@ -23,6 +30,10 @@ PROBE = """
 import json, sys, torch
 torch.set_num_threads(1)
 import gym_puzzles_tpu_torch as gpt
+from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
+from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
+from gym_puzzles_tpu_torch.train import imitate, sweep
+from gym_puzzles_tpu_torch.train.ppo import PPOConfig
 import gym_puzzles_tpu_torch.convert, gym_puzzles_tpu_torch.profile_step
 import gym_puzzles_tpu_torch.bench_kernels
 import gym_puzzles_tpu_torch.engine.solver_cuda, gym_puzzles_tpu_torch.engine.step_cuda
@@ -31,7 +42,11 @@ import gym_puzzles_tpu_torch.train.checkpoint, gym_puzzles_tpu_torch.train.cli
 import gym_puzzles_tpu_torch.train.evaluate, gym_puzzles_tpu_torch.train.export
 import gym_puzzles_tpu_torch.train.networks, gym_puzzles_tpu_torch.train.normalize
 import gym_puzzles_tpu_torch.api.image_obs, gym_puzzles_tpu_torch.render.device
-import gym_puzzles_tpu_torch.render.palette
+import gym_puzzles_tpu_torch.render.palette, gym_puzzles_tpu_torch.render.raster
+import gym_puzzles_tpu_torch.render._raster_cpp, gym_puzzles_tpu_torch.render.window
+import gym_puzzles_tpu_torch.api.gym_compat, gym_puzzles_tpu_torch.teleop
+import gym_puzzles_tpu_torch.train.scripted, gym_puzzles_tpu_torch.train.imitate
+import gym_puzzles_tpu_torch.train.sweep, gym_puzzles_tpu_torch.utils.profiling
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),
                         ("MultiRobotPuzzle-v2", "pallas"), ("MultiRobotPuzzleHeavy-v2", "fused"),
@@ -51,6 +66,22 @@ cnn = PPO(PPOConfig(policy="cnn", n_envs=2, n_steps=2, batch_size=4, n_epochs=1)
                                                  velocity_iters=2, position_iters=1))
 ts, metrics = cnn.train_step(cnn.init_state())
 assert ts.last_obs.dtype == torch.uint8 and bool(torch.isfinite(metrics["loss"]))
+from gym_puzzles_tpu_torch.api.gym_compat import GymPuzzleEnv
+from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
+env = GymPuzzleEnv("MultiRobotPuzzle-v0", device="cpu", velocity_iters=2, position_iters=1)
+env.reset()
+env.step([0.0] * 6)
+assert env.render("rgb_array").shape == (480, 640, 3)
+img = ImageObsEnv(downsample=8, device="cpu", velocity_iters=2, position_iters=1)
+assert img.reset().shape == (180, 80, 3)
+from gym_puzzles_tpu_torch.train import imitate, sweep
+small = PPOConfig(n_envs=2, n_steps=2, batch_size=4, n_epochs=1, velocity_iters=2,
+                  position_iters=1)
+algo, ts = imitate.bc_train(small, rounds=1, log_fn=lambda line: None, device="cpu")
+assert int(ts.timesteps) == 4
+rows = sweep.run_fast_sweep(small, trials=1, budget_timesteps=4, log=lambda line: None,
+                            device="cpu")
+assert rows[0]["final_state"] is not None
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -67,9 +98,19 @@ def test_port_imports_no_jax():
 
 
 def test_make_without_cuda_raises(monkeypatch):
+    """``make`` and every entry point of the host surface and the extras
+    refuse to run without CUDA when no device is named."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        gpt.make("MultiRobotPuzzle-v0", num_envs=4)
+    small = PPOConfig(n_envs=2, n_steps=2, batch_size=4, n_epochs=1)
+    for build in (lambda: gpt.make("MultiRobotPuzzle-v0", num_envs=4),
+                  lambda: GymPuzzleEnv("MultiRobotPuzzle-v0"),
+                  lambda: GymnasiumVectorAdapter("MultiRobotPuzzle-v0", 4),
+                  lambda: ImageObsEnv(),
+                  lambda: imitate.bc_train(small, rounds=1),
+                  lambda: sweep.run_fast_sweep(small, trials=1),
+                  lambda: sweep.run_local_sweep(trials=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 def test_all_ids_and_backends_build():

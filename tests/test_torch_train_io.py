@@ -98,8 +98,9 @@ def test_evaluate_batched_chunk_invariant(one_update):
                                              seed=9, max_steps=12, chunk=chunk, **ITERS)
             for chunk in (5, 200)]
     assert runs[0] == runs[1]
-    mean, std, returns, lengths = runs[0]
+    mean, std, returns, lengths, statuses = runs[0]
     assert len(returns) == 3 and lengths == [12, 12, 12] and np.isfinite(mean)
+    assert statuses == [0, 0, 0]
     mean1, _, returns1 = evaluate.evaluate_policy(algo, ts, n_episodes=1, max_steps=3,
                                                   seed=5, **ITERS)
     assert len(returns1) == 1 and np.isfinite(mean1)
