@@ -81,7 +81,21 @@ Phases (each raises on failure; the script exits non-zero on any):
    ``train_configs/ppo-mrp-v0.json``), 2 trials x 1 update, each ranked by
    256 deterministic eval episodes cut to 200 steps: s per trial, ranking,
    launches;
-6. (run after 7-12) both kernels' times per variant, beside the mean
+13. distribution (``gym_puzzles_tpu_torch.parallel``) at the v0 recipe of
+   phase 7: (a) ``DistributedPPO`` on a one-rank NCCL group for 3 updates
+   against a plain ``PPO`` given the same action noise and minibatch orders:
+   every state field and metric equal bit for bit after each update, 192
+   kernel-A launches and none of B, env-steps/s of both, all-reduces per
+   update and one gradient all-reduce's wall time; (b) two processes share
+   the card over gloo (NCCL refuses two ranks on one device), 2048 envs
+   each, 2 updates: replicated state and metrics bitwise equal across the
+   ranks after every update, env shards different, 64 launches per rank per
+   update, a heartbeat, and a sharded save after update 1 restored into a
+   fresh two-process job whose update 2 equals the first job's bit for bit;
+   (c) the scaling bench's n = 1 row at its defaults and one update of
+   ``torchrun --nproc_per_node 1 -m gym_puzzles_tpu_torch.train.cli
+   --distributed``;
+6. (run after 7-13) both kernels' times per variant, beside the mean
    and warp-max live pairs per env of the inputs timed (the sweeps visit
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
@@ -103,6 +117,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from gym_puzzles_tpu_torch import make
 from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
@@ -114,6 +130,8 @@ from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
 from gym_puzzles_tpu_torch.render import _raster_cpp
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
 from gym_puzzles_tpu_torch.render.raster import render_batch
+from gym_puzzles_tpu_torch.parallel import DistributedPPO, Heartbeat, scaling_bench
+from gym_puzzles_tpu_torch.parallel import train_state_specs
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
@@ -224,6 +242,14 @@ SCRIPTED_RECORDS = {"pusher": "8/128 completed, mean return -34,987, median comp
 SWEEP_TRIALS = 2
 SWEEP_EVAL_EPISODES = 256
 SWEEP_EVAL_MAX_STEPS = 200
+# phase 13: distribution at the v0 recipe (TRAIN_CONFIG, TRAIN_OVERRIDES):
+# (a) DistributedPPO on a one-rank NCCL group against PPO, same noise and
+# orders; (b) two ranks sharing the card over gloo, 2048 envs each; (c) the
+# scaling bench's n = 1 row at its defaults, and the CLI under torchrun
+DIST_UPDATES = 3
+DIST_GLOO_RANKS = 2
+DIST_GLOO_UPDATES = 2
+ALLREDUCE_REPS = 200
 
 
 def card() -> str:
@@ -1347,6 +1373,222 @@ def run_sweep(card_line) -> dict:
     return dict(launches=launches["step_fused"], trial_s=[float(x) for x in secs])
 
 
+def replicated_leaves(tree, specs) -> dict:
+    """The leaves of a checkpoint tree outside the fields that ``specs``
+    (``train_state_specs``) marks as sharded, by dotted path."""
+    def leaves(x, path):
+        if isinstance(x, dict):
+            return {p: v for k in x for p, v in leaves(x[k], f"{path}.{k}" if path else k).items()}
+        return {path: x}
+    sharded = [k for k, v in specs.items() if v]
+    return {p: v for p, v in leaves(tree, "").items()
+            if not any(p == k or p.startswith(k + ".") for k in sharded)}
+
+
+def dist_config() -> PPOConfig:
+    return PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()), **TRAIN_OVERRIDES)
+
+
+def run_dist_world1(card_line) -> dict:
+    """Phase 13a: ``DistributedPPO`` on a one-rank NCCL group at the v0
+    recipe, for ``DIST_UPDATES`` updates, against a plain ``PPO`` given the
+    same action noise and minibatch orders: every state field (generators
+    included) and every metric equal bit for bit after each update; exactly
+    ``n_steps`` kernel-A launches per update and none of kernel B; env-steps/s
+    of both; the all-reduces per update and one gradient all-reduce's wall
+    time at the params' size."""
+    cfg = dist_config()
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv", world_size=1, rank=0)
+        try:
+            algo, plain = DistributedPPO(cfg), PPO(cfg)
+            on_card(algo, "DistributedPPO")
+            if algo.mesh.backend != "nccl" or algo.mesh.world_size != 1:
+                raise AssertionError(f"mesh {algo.mesh}")
+            gen = torch.Generator(device=algo.device).manual_seed(0)
+            total = cfg.n_steps * cfg.n_envs
+            inputs = [(torch.randn((cfg.n_steps, cfg.n_envs, plain.act_dim), generator=gen,
+                                   device=algo.device),
+                       torch.stack([torch.randperm(total, generator=gen, device=algo.device)
+                                    for _ in range(cfg.n_epochs)]))
+                      for _ in range(DIST_UPDATES)]
+            a, b = plain.init_state(), algo.init_state()
+            diff = tree_diff(ckpt.to_tree(b), ckpt.to_tree(a), "init")
+            want, plain_walls = [], []
+            for noise, perms in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a, ma = plain.train_step(a, noise, perms)
+                torch.cuda.synchronize()
+                plain_walls.append(time.perf_counter() - t0)
+                want.append((ckpt.to_tree(a), ckpt.to_tree(ma)))
+            torch.cuda.synchronize()
+            step_cuda.reset_launch_count()
+            calls0, walls = algo.mesh.calls, []
+            for u, (noise, perms) in enumerate(inputs):
+                t0 = time.perf_counter()
+                b, mb = algo.train_step(b, noise, perms)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                diff += (tree_diff(ckpt.to_tree(b), want[u][0], f"update {u + 1} state")
+                         + tree_diff(ckpt.to_tree(mb), want[u][1], f"update {u + 1} metrics"))
+            launches = expect_launches("DistributedPPO world size 1", DIST_UPDATES * cfg.n_steps)
+            calls = algo.mesh.calls - calls0
+            if diff:
+                raise AssertionError(f"DistributedPPO at world size 1 differs from PPO in {diff}")
+            grads = [torch.randn_like(v) for v in b.params.values()] + [
+                torch.zeros((), device=algo.device)]
+            for _ in range(10):
+                algo.mesh.mean(grads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ALLREDUCE_REPS):
+                algo.mesh.mean(grads)
+            torch.cuda.synchronize()
+            allreduce_ms = (time.perf_counter() - t0) / ALLREDUCE_REPS * 1e3
+        finally:
+            dist.destroy_process_group()
+    n_floats = sum(g.numel() for g in grads)
+    rate, plain_rate = DIST_UPDATES * total / sum(walls), DIST_UPDATES * total / sum(plain_walls)
+    print(f"  (a) DistributedPPO, 1 rank on NCCL, {cfg.n_envs} envs, {DIST_UPDATES} updates with "
+          f"the noise and orders of a plain PPO: equal bit for bit after every update (params, "
+          f"Adam state, normalizer, env state, generators, metrics); launches {launches}; "
+          f"{calls / DIST_UPDATES:.1f} all-reduces per update; updates "
+          + " / ".join(f"{w:.3f}" for w in walls) + f" s: {rate:,.0f} env-steps/s including the "
+          f"learner (plain PPO " + " / ".join(f"{w:.3f}" for w in plain_walls)
+          + f" s: {plain_rate:,.0f}); one gradient + KL all-reduce ({n_floats} float32, "
+          f"flatten and split included) {allreduce_ms:.4f} ms wall  [{card_line}]", flush=True)
+    return dict(launches=launches["step_fused"], rate=rate, plain_rate=plain_rate,
+                allreduce_ms=allreduce_ms, calls_per_update=calls / DIST_UPDATES,
+                walls=walls, plain_walls=plain_walls)
+
+
+def _gloo_rank(rank, job, tmp):
+    """One of the ``DIST_GLOO_RANKS`` processes of phase 13b, on the one
+    card over gloo.  ``train``: ``DIST_GLOO_UPDATES`` updates (launches
+    counted per update, a sharded save after the first), one heartbeat;
+    ``resume``: restore the save and run the second update again.  Writes
+    what it got to ``<tmp>/<job>_<rank>.pt``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv_{job}",
+                            world_size=DIST_GLOO_RANKS, rank=rank)
+    try:
+        algo = DistributedPPO(dist_config(), device="cuda:0")
+        out = {}
+        if job == "train":
+            hb = Heartbeat(timeout=60.0)
+            ts = algo.init_state()
+            out.update(envs=ckpt.to_tree(ts.vstate), specs=train_state_specs(ts),
+                       launches=[], states=[], metrics=[], walls=[])
+            for u in range(DIST_GLOO_UPDATES):
+                torch.cuda.synchronize()
+                step_cuda.reset_launch_count()
+                t0 = time.perf_counter()
+                ts, metrics = algo.train_step(ts)
+                torch.cuda.synchronize()
+                out["walls"].append(time.perf_counter() - t0)
+                out["launches"].append(launch_counts())
+                out["states"].append(ckpt.to_tree(ts))
+                out["metrics"].append(ckpt.to_tree(metrics))
+                if u == 0:
+                    ckpt.save(f"{tmp}/ckpt", ts, ckpt.step_count(ts.timesteps), mesh=algo.mesh)
+            t0 = time.perf_counter()
+            hb.ping()
+            out["ping_s"] = time.perf_counter() - t0
+        else:
+            rs = ckpt.restore(f"{tmp}/ckpt", algo.init_state(), mesh=algo.mesh)
+            rs, metrics = algo.train_step(rs)
+            out.update(state=ckpt.to_tree(rs), metrics=ckpt.to_tree(metrics))
+        torch.save(out, f"{tmp}/{job}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dist_gloo(card_line) -> dict:
+    """Phase 13b: ``DIST_GLOO_RANKS`` processes share the card over gloo
+    (NCCL refuses two ranks on one device), 2048 envs each: the replicated
+    state and the metrics bitwise equal across the ranks after every update,
+    the env shards different, ``n_steps`` kernel-A launches per rank per
+    update, a heartbeat; a sharded save after update 1, restored into a fresh
+    job, whose update 2 equals the first job's bit for bit on every rank."""
+    cfg = dist_config()
+    out = {}
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        for job in ("train", "resume"):
+            t0 = time.perf_counter()
+            mp.start_processes(_gloo_rank, args=(job, tmp), nprocs=DIST_GLOO_RANKS,
+                               start_method="spawn")
+            out[f"{job}_s"] = time.perf_counter() - t0
+            out[job] = [torch.load(f"{tmp}/{job}_{r}.pt", map_location="cpu", weights_only=False)
+                        for r in range(DIST_GLOO_RANKS)]
+    train, resume = out["train"], out["resume"]
+    specs = train[0]["specs"]
+    want = {"step_fused": cfg.n_steps, "solve_contacts": 0}
+    for r, got in enumerate(train):
+        if got["launches"] != [want] * DIST_GLOO_UPDATES:
+            raise AssertionError(f"rank {r}: launches per update {got['launches']}, expected "
+                                 f"{want} in each")
+    for u in range(DIST_GLOO_UPDATES):
+        rep = [replicated_leaves(t["states"][u], specs) for t in train]
+        diff = tree_diff(rep[0], rep[1], f"update {u + 1}") + tree_diff(
+            train[0]["metrics"][u], train[1]["metrics"][u], f"update {u + 1} metrics")
+        if diff:
+            raise AssertionError(f"the ranks' replicated state differs in {diff}")
+    if not tree_diff(train[0]["envs"], train[1]["envs"]):
+        raise AssertionError("the two ranks' env shards are equal")
+    for r in range(DIST_GLOO_RANKS):
+        diff = (tree_diff(resume[r]["state"], train[r]["states"][-1], f"rank {r} state")
+                + tree_diff(resume[r]["metrics"], train[r]["metrics"][-1], f"rank {r} metrics"))
+        if diff:
+            raise AssertionError(f"the resumed update differs in {diff}")
+    walls = [t["walls"] for t in train]
+    per_update = cfg.n_steps * cfg.n_envs
+    rates = [per_update / max(w[u] for w in walls) for u in range(DIST_GLOO_UPDATES)]
+    print(f"  (b) {DIST_GLOO_RANKS} ranks on the one card over gloo, "
+          f"{cfg.n_envs // DIST_GLOO_RANKS} envs each: replicated state and metrics bitwise equal across the ranks after each of "
+          f"{DIST_GLOO_UPDATES} updates; env shards differ; launches per rank per update "
+          f"{[t['launches'][0]['step_fused'] for t in train]}; heartbeat "
+          + " / ".join(f"{t['ping_s'] * 1e3:.2f}" for t in train) + " ms; updates (slowest "
+          "rank) " + " / ".join(f"{max(w[u] for w in walls):.3f}" for u in range(DIST_GLOO_UPDATES))
+          + " s = " + " / ".join(f"{x:,.0f}" for x in rates) + " env-steps/s; resumed update "
+          f"{DIST_GLOO_UPDATES} equal bit for bit on every rank; jobs {out['train_s']:.1f} / "
+          f"{out['resume_s']:.1f} s (process start-up included)  [{card_line}]", flush=True)
+    return dict(launches=[[lc["step_fused"] for lc in t["launches"]] for t in train],
+                rates=rates, walls=walls)
+
+
+def run_dist_entry_points(card_line) -> dict:
+    """Phase 13c: the scaling bench's n = 1 row at its defaults, and one
+    update of the v0 recipe through ``torchrun --nproc_per_node 1 -m
+    gym_puzzles_tpu_torch.train.cli --distributed``."""
+    (row,) = scaling_bench.run(nproc=1)
+    if not (row["devices"] == 1 and row["env_steps_per_s"] > 0
+            and row["efficiency_vs_1dev"] == 1.0):
+        raise AssertionError(f"scaling bench row {row}")
+    print(f"  (c) scaling bench (2048 envs, 64 steps, 2 epochs, best of 3 after a warm update): "
+          f"{json.dumps(row)}  [{card_line}]", flush=True)
+    cfg = dist_config()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "gym_puzzles_tpu_torch.train.cli", "--distributed", "--config", str(TRAIN_CONFIG),
+         "--n_envs", str(cfg.n_envs), "--n_steps", str(cfg.n_steps),
+         "--batch_size", str(cfg.batch_size), "--n_epochs", str(cfg.n_epochs),
+         "--total_timesteps", str(cfg.n_steps * cfg.n_envs), "--disable_wandb"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    if run.returncode or [line["timesteps"] for line in lines] != [cfg.n_steps * cfg.n_envs]:
+        raise AssertionError(f"torchrun train.cli --distributed: rc {run.returncode}\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    print(f"  (c) torchrun --nproc_per_node 1 -m gym_puzzles_tpu_torch.train.cli --distributed: "
+          f"one update, {wall:.1f} s with start-up; {json.dumps(lines[0])}  [{card_line}]",
+          flush=True)
+    return dict(row=row, cli_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1449,6 +1691,14 @@ def main() -> int:
     sweep_run = run_sweep(card_line)
     print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    print("== 13. distribution: DistributedPPO on NCCL at world size 1, two ranks over gloo, "
+          "the scaling bench, torchrun", flush=True)
+    t_phase = time.perf_counter()
+    dist_w1 = run_dist_world1(card_line)
+    dist_gloo = run_dist_gloo(card_line)
+    run_dist_entry_points(card_line)
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -1477,6 +1727,7 @@ def main() -> int:
              scripted_launches=sum(d["launches"] for d in demos.values()),
              bc_launches=bc["launches"], bc_resume_launches=bc["resume_launches"],
              sweep_launches=sweep_run["launches"],
+             dist_launches=dist_w1["launches"], dist_gloo_launches=dist_gloo["launches"],
              max_abs_err=spawn_diff["max"],
              ms=v0["fused_ms"], plain_ms=plain_ms,
              bound_ms=v0["fused_bound"]["ms"], bound_by=v0["fused_bound"]["by"]),

@@ -6,6 +6,13 @@ Adam state, normalizer, env batch, both generators' states, episode
 statistics, env params and hparams -- is one file, ``<dir>/<step>/state.pt``
 written by ``torch.save`` as nested dicts of tensors and numbers, so a
 restore continues the exact trajectory.
+
+A distributed learner (``parallel/mesh.py``) passes its ``mesh``: rank 0
+writes the replicated part once (``state.pt``, with the world size) and
+every rank its shard (``shard_<rank>.pt``: its envs, obs, episode counters,
+normalizer returns and both generators, as ``train_state_specs`` names
+them), into one directory that the ranks share.  A fresh job of the same
+world size restores them and continues bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import pathlib
 import torch
 
 from gym_puzzles_tpu_torch import convert
+from gym_puzzles_tpu_torch.parallel.mesh import train_state_specs
 
 STATE_FILE = "state.pt"
 
@@ -61,17 +69,44 @@ def from_tree(template, tree):
     return tree
 
 
-def load(path, step: int | None = None) -> dict:
-    """The saved tree (nested dicts of CPU tensors and numbers) at ``step``
-    (default: the latest)."""
+def _step_dir(path, step: int | None) -> pathlib.Path:
     path = pathlib.Path(path).absolute()
     if step is None:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {path}")
-    tree = torch.load(path / str(step) / STATE_FILE, map_location="cpu", weights_only=True)
+    return path / str(step)
+
+
+def load(path, step: int | None = None) -> dict:
+    """The saved tree (nested dicts of CPU tensors and numbers) at ``step``
+    (default: the latest); of a distributed learner's checkpoint, the
+    replicated part and ``world_size``."""
+    tree = torch.load(_step_dir(path, step) / STATE_FILE, map_location="cpu",
+                      weights_only=True)
     tree.setdefault("image_pipeline", None)  # flat-obs checkpoints written before it existed
     return tree
+
+
+def _split(tree: dict, paths) -> tuple:
+    """(``tree`` without the dotted ``paths``, their subtrees)."""
+    rest, part = dict(tree), {}
+    for p in paths:
+        *parents, leaf = p.split(".")
+        src, dst = rest, part
+        for k in parents:
+            src[k] = dict(src[k])
+            src, dst = src[k], dst.setdefault(k, {})
+        dst[leaf] = src.pop(leaf)
+    return rest, part
+
+
+def _merge(a: dict, b: dict) -> dict:
+    """Inverse of :func:`_split`."""
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = _merge(a[k], v) if k in a else v
+    return out
 
 
 def check_pipeline(saved, template):
@@ -83,19 +118,42 @@ def check_pipeline(saved, template):
                          f"learner's {template.image_pipeline}")
 
 
-def save(path, train_state, step: int):
-    """Write ``train_state`` to ``<path>/<step>/state.pt``."""
+def save(path, train_state, step: int, mesh=None):
+    """Write ``train_state`` to ``<path>/<step>/state.pt``; with a ``mesh``
+    (every rank calls this) the replicated part there and this rank's shard
+    to ``shard_<rank>.pt``.  ``state.pt`` is written last, so
+    :func:`latest_step` finds only complete checkpoints."""
     out = pathlib.Path(path).absolute() / str(int(step))
     out.mkdir(parents=True, exist_ok=True)
-    torch.save(to_tree(train_state), out / STATE_FILE)
+    tree = to_tree(train_state)
+    if mesh is None:
+        torch.save(tree, out / STATE_FILE)
+        return
+    specs = train_state_specs(train_state)
+    replicated, shard = _split(tree, [k for k, sharded in specs.items() if sharded])
+    torch.save(shard, out / f"shard_{mesh.rank}.pt")
+    mesh.barrier()
+    if mesh.rank == 0:
+        torch.save(dict(replicated, world_size=mesh.world_size), out / STATE_FILE)
+    mesh.barrier()
 
 
-def restore(path, template, step: int | None = None):
+def restore(path, template, step: int | None = None, mesh=None):
     """The TrainState saved at ``step`` (default: the latest), onto a
     ``template`` of the same shapes (e.g. ``PPO.init_state()``).  The
-    template's generators -- the env's among them -- take the saved states."""
-    tree = load(path, step)
+    template's generators -- the env's among them -- take the saved states.
+    A distributed learner's checkpoint restores only with a ``mesh`` of its
+    world size, each rank taking its own shard."""
+    step_dir = _step_dir(path, step)
+    tree = load(step_dir.parent, int(step_dir.name))
     check_pipeline(tree["image_pipeline"], template)
+    world, want = tree.pop("world_size", None), None if mesh is None else mesh.world_size
+    if world != want:
+        raise ValueError(f"checkpoint of world size {world} restored at world size {want} "
+                         "(None: a single-process learner's)")
+    if mesh is not None:
+        tree = _merge(tree, torch.load(step_dir / f"shard_{mesh.rank}.pt", map_location="cpu",
+                                       weights_only=True))
     return from_tree(template, tree)
 
 

@@ -11,8 +11,15 @@ checkpoint save/resume.  Runs on the card unless ``--device`` names another:
 
 ``--policy cnn`` trains the NatureCNN policy on v0's device-rendered
 frames (the JAX package's image pipeline: 3 stacked frames, frameskip 4,
-downsample 4).  The JAX CLI's ``--distributed`` waits for the port's
-distribution.
+downsample 4).  ``--distributed`` trains a ``DistributedPPO`` over
+torchrun's processes, one per GPU (``parallel/mesh.py``), each with
+``n_envs / N`` envs; only rank 0 prints and logs, and checkpoints hold the
+replicated state once and each rank's shard:
+
+    torchrun --nproc_per_node N -m gym_puzzles_tpu_torch.train.cli --distributed \
+        --config train_configs/ppo-mrp-v0.json --n_envs 4096 ...
+
+Without torchrun's variables ``--distributed`` runs at world size 1.
 """
 
 from __future__ import annotations
@@ -48,11 +55,16 @@ def build_parser():
     p.add_argument("--checkpoint_every", default=0, type=int,
                    help="also checkpoint every N updates (0 = at the end only)")
     p.add_argument("--resume", default=None, type=str,
-                   help="checkpoint directory to resume (the whole TrainState)")
+                   help="checkpoint directory to resume (the whole TrainState; under "
+                        "--distributed, one written at the same world size)")
     p.add_argument("--resume_policy", default=None, type=str,
                    help="warm start from a policy: a checkpoint directory or a policy "
                         ".npz (train/export.py); params and normalizer moments graft "
                         "into a fresh TrainState of any n_envs")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel over torchrun's processes (one per GPU, cuda:LOCAL_RANK "
+                        "unless --device names one; NCCL, or gloo on the CPU): each rank "
+                        "steps n_envs / WORLD_SIZE envs")
     p.add_argument("--update_params_decay", default=None, type=float,
                    help="per-update reward decay (the reference's "
                         "env.update_params(timestep, decay) hook)")
@@ -124,8 +136,20 @@ def main(argv=None):
             config = json.load(f)
     overrides = overrides_from_args(args)
 
+    mesh = None
+    if args.distributed:
+        from gym_puzzles_tpu_torch.parallel import DistributedPPO, init_distributed, make_mesh
+
+        init_distributed(device=args.device)
+        mesh = make_mesh()
+        if args.run_wandb_sweep and mesh.world_size > 1:
+            # the sweep's config would reach rank 0 alone
+            raise SystemExit("--run_wandb_sweep needs a single rank")
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+
     logger = None
-    if not args.disable_wandb:
+    if lead and not args.disable_wandb:
         try:
             import wandb
 
@@ -143,29 +167,35 @@ def main(argv=None):
         except Exception as e:  # wandb is optional: log to stdout without it
             print(f"wandb unavailable ({e}); logging to stdout only")
     elif args.run_wandb_sweep:
-        print("--run_wandb_sweep ignored: wandb disabled")
+        say("--run_wandb_sweep ignored: wandb disabled")
 
     cfg = PPOConfig.from_reference_json(config, **overrides)
-    print(f"config: {cfg}")
-    algo = PPO(cfg, device=args.device)
+    say(f"config: {cfg}")
+    if mesh is None:
+        algo = learner = PPO(cfg, device=args.device)
+    else:
+        algo = DistributedPPO(cfg, device=args.device)
+        learner = algo.ppo
+        say(f"distributed: {mesh.world_size} rank(s), {mesh.backend or 'no'} process group, "
+            f"{learner.cfg.n_envs} envs each on {algo.device}")
     state = algo.init_state()
     if args.resume:
-        state = ckpt.restore(args.resume, state)
+        state = ckpt.restore(args.resume, state, mesh=mesh)
         # this run's hyperparameters and reward params win over the
         # checkpoint's, as in the JAX CLI
-        state = state.replace(hparams=HParams.from_config(cfg), env_params=algo.env_params,
+        state = state.replace(hparams=HParams.from_config(cfg), env_params=learner.env_params,
                               normalizer=state.normalizer.replace(
                                   gamma=HParams.from_config(cfg).gamma))
-        print(f"resumed from {args.resume} at {ckpt.step_count(state.timesteps)} steps")
+        say(f"resumed from {args.resume} at {ckpt.step_count(state.timesteps)} steps")
     elif args.resume_policy:
         state = ckpt.restore_policy(args.resume_policy, state)
-        print(f"warm-started policy from {args.resume_policy} "
-              f"at {ckpt.step_count(state.timesteps)} steps")
+        say(f"warm-started policy from {args.resume_policy} "
+            f"at {ckpt.step_count(state.timesteps)} steps")
 
     last = {"t": time.time(), "steps": ckpt.step_count(state.timesteps)}
 
     def log_fn(update, metrics):
-        if update % args.log_interval:
+        if update % args.log_interval or not lead:
             return
         now = time.time()
         steps = ckpt.step_count(metrics["timesteps"])
@@ -193,11 +223,14 @@ def main(argv=None):
 
     def save(ts):
         saved["step"] = ckpt.step_count(ts.timesteps)
-        ckpt.save(path, ts, saved["step"])
+        if mesh is None:
+            ckpt.save(path, ts, saved["step"])
+        else:  # every rank writes its shard
+            ckpt.save(path, ts, saved["step"], mesh=mesh)
 
     def checkpoint_fn(update, ts):
         save(ts)
-        print(f"periodic checkpoint at update {update} -> {path}", flush=True)
+        say(f"periodic checkpoint at update {update} -> {path}", flush=True)
 
     final = algo.learn(args.total_timesteps, log_fn=log_fn, state=state,
                        checkpoint_fn=checkpoint_fn if args.save_model else None,
@@ -205,7 +238,7 @@ def main(argv=None):
     # the last periodic save may already hold the final step
     if args.save_model and saved["step"] != ckpt.step_count(final.timesteps):
         save(final)
-        print(f"saved checkpoint to {path}")
+        say(f"saved checkpoint to {path}")
     return final
 
 

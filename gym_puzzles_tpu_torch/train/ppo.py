@@ -22,6 +22,13 @@ Both ride the :class:`TrainState` and advance in place.  The rollout and
 the update take the action noise and the minibatch order as arguments too,
 so that a test can give them.
 
+Data parallelism (``parallel/mesh.py``): the rollout, the update and
+:meth:`PPO.train_step` take a ``mesh`` (the process group of the ranks,
+each with its own share of the envs) and sync at the JAX package's points:
+the normalizer and episode statistics once per update, the gradients and the
+KL in one all-reduce per minibatch, the loss metrics and completions at the
+end.  With ``mesh=None`` nothing is synced.
+
 Hyperparameter names and defaults mirror train/configs/ppo-mrp-*.json, so
 the reference's configs load directly.
 """
@@ -261,6 +268,25 @@ def adam_step(params: dict, grads: list, opt: AdamState, hp: HParams):
     return adam_update(params, torch._foreach_mul(grads, clip), opt, hp.learning_rate)
 
 
+def sync_statistics(mesh, ts: TrainState, norm: nrm.NormalizerState, stat_r, stat_c):
+    """The rollout's end-of-update sync over ``mesh``'s W ranks, one
+    all-reduce (the JAX package's ``ppo.py:340-356``): the obs and return
+    normalizers' ``mean`` and ``var`` are averaged over the ranks; their
+    ``count`` and the episode counters ``stat_return`` / ``stat_count``
+    become the update's old value plus the sum of every rank's increment,
+    computed as ``sum(new) - (W - 1) * old`` so that one rank keeps its own
+    value bit for bit.  -> (normalizer, stat_return, stat_count)."""
+    old, w = ts.normalizer, mesh.world_size
+    o, r = norm.obs_rms, norm.ret_rms
+    summed = mesh.sum([o.mean, o.var, r.mean, r.var, o.count, r.count, stat_r, stat_c])
+    o_mean, o_var, r_mean, r_var = (x / w for x in summed[:4])
+    olds = (old.obs_rms.count, old.ret_rms.count, ts.stat_return, ts.stat_count)
+    o_count, r_count, stat_r, stat_c = (s - (w - 1) * x for s, x in zip(summed[4:], olds))
+    norm = norm.replace(obs_rms=o.replace(mean=o_mean, var=o_var, count=o_count),
+                        ret_rms=r.replace(mean=r_mean, var=r_var, count=r_count))
+    return norm, stat_r, stat_c
+
+
 class PPO:
     """Holds the env and the network; :meth:`train_step` advances a
     :class:`TrainState`.
@@ -356,7 +382,7 @@ class PPO:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def rollout(self, ts: TrainState, noise=None, timer=_untimed):
+    def rollout(self, ts: TrainState, noise=None, timer=_untimed, mesh=None):
         """``n_steps`` env steps -> (ts with the env, normalizer and episode
         statistics advanced, Transition, bootstrap value [E]).
 
@@ -365,7 +391,9 @@ class PPO:
         exp(log_std) * noise``; the transition keeps it unclipped with its
         log-prob, and the env steps with it clipped to [-1, 1].  The
         bootstrap value is taken on the last obs normalized with the
-        end-of-rollout statistics, without updating them."""
+        end-of-rollout statistics, without updating them.  With a ``mesh``
+        those statistics and the episode counters are synced first
+        (:func:`sync_statistics`)."""
         cfg, dev = self.cfg, self.device
         T, E = cfg.n_steps, cfg.n_envs
         if noise is None:
@@ -415,6 +443,8 @@ class PPO:
                 ep_ret = torch.where(done, 0.0, ep_ret)
                 ep_len = torch.where(done, 0, ep_len)
                 traj.reward[t], traj.done[t], traj.status[t] = n_reward, done, info["done_status"]
+        if mesh is not None:
+            norm, stat_r, stat_c = sync_statistics(mesh, ts, norm, stat_r, stat_c)
         with timer("policy"):
             n_last = (nrm.normalize_obs(norm, obs, update=False)[1] if self.use_obs_norm
                       else obs)
@@ -441,7 +471,8 @@ class PPO:
             approx_kl = ((ratio - 1.0) - torch.log(ratio)).mean()
         return total, (pg_loss.detach(), v_loss.detach(), ent.detach(), approx_kl)
 
-    def update(self, ts: TrainState, traj: Transition, advantages, returns, perms=None):
+    def update(self, ts: TrainState, traj: Transition, advantages, returns, perms=None,
+               mesh=None):
         """``n_epochs`` passes of minibatch SGD -> (ts with params and Adam
         state advanced, metrics).
 
@@ -458,13 +489,21 @@ class PPO:
         The JAX package runs the skipped minibatches frozen and averages
         their losses too; here ``loss``, ``policy_loss``, ``value_loss`` and
         ``entropy`` average the minibatches that ran.  The stop reads each
-        minibatch's KL on the host."""
+        minibatch's KL on the host.
+
+        With a ``mesh`` of W ranks each rank takes minibatches of
+        ``batch_size // W`` of its own transitions (advantages normalized
+        within them); the gradients and the KL are averaged over the ranks in
+        one all-reduce per minibatch, before the clip and the KL test, so that
+        every rank applies the same step and stops at the same minibatch; the
+        four losses are averaged over the ranks at the end."""
         cfg, hp = self.cfg, ts.hparams
+        world = 1 if mesh is None else mesh.world_size
         total = traj.done.numel()
         flat = lambda x: x.reshape((total,) + x.shape[2:])  # noqa: E731
         obs, action, old_lp = flat(traj.obs), flat(traj.action), flat(traj.log_prob)
         adv, ret = flat(advantages), flat(returns)
-        mb_size = max(1, min(cfg.batch_size, total))
+        mb_size = max(1, min(cfg.batch_size // world, total))
         n_minibatch = max(1, total // mb_size)
         if perms is None:
             perms = torch.stack([torch.randperm(total, generator=ts.generator, device=self.device)
@@ -478,8 +517,10 @@ class PPO:
             for idx in perms[epoch, : n_minibatch * mb_size].view(n_minibatch, mb_size):
                 loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx], old_lp[idx],
                                                    adv[idx], ret[idx], hp)
-                grads = torch.autograd.grad(loss, list(params.values()))
-                params, opt = adam_step(params, list(grads), opt, hp)
+                grads = list(torch.autograd.grad(loss, list(params.values())))
+                if mesh is not None:
+                    *grads, kl = mesh.mean(grads + [kl])
+                params, opt = adam_step(params, grads, opt, hp)
                 params = {k: v.requires_grad_() for k, v in params.items()}
                 stats.append(torch.stack([loss.detach(), pg, vl, ent]))
                 kl_last = kl
@@ -489,32 +530,40 @@ class PPO:
             if stopped:
                 break
         means = torch.stack(stats).mean(dim=0)
+        if mesh is not None:
+            (means,) = mesh.mean([means])
         metrics = {"loss": means[0], "policy_loss": means[1], "value_loss": means[2],
                    "entropy": means[3], "approx_kl": kl_last, "kl_stopped": stopped}
         ts = ts.replace(params={k: v.detach() for k, v in params.items()}, opt_state=opt)
         return ts, metrics
 
-    def train_step(self, ts: TrainState, noise=None, perms=None, timer=_untimed):
+    def train_step(self, ts: TrainState, noise=None, perms=None, timer=_untimed, mesh=None):
         """One update: rollout, GAE, epochs -> (ts, metrics).  ``metrics``
         holds tensors on the device (``kl_stopped`` a bool): ``ep_rew_mean``
         (NaN when no episode finished), ``episodes``, ``completions`` (steps
         whose ``done_status`` is 3), ``timesteps`` (int64) and the losses.
         ``timer`` (a :class:`PhaseTimer`) splits the update into ``env``
         (physics and the reward bookkeeping), ``render`` (image env only),
-        ``policy``, ``gae`` and ``update``."""
+        ``policy``, ``gae`` and ``update``.  With a ``mesh`` the episode
+        statistics, ``completions`` and ``timesteps`` count every rank's
+        envs."""
         ts0 = ts
-        ts, traj, last_value = self.rollout(ts, noise, timer)
+        ts, traj, last_value = self.rollout(ts, noise, timer, mesh)
         with timer("gae"):
             advantages, returns = compute_gae(traj, last_value, ts.hparams.gamma,
                                               ts.hparams.gae_lambda)
         with timer("update"):
-            ts, metrics = self.update(ts, traj, advantages, returns, perms)
+            ts, metrics = self.update(ts, traj, advantages, returns, perms, mesh)
         completed = ts.stat_count - ts0.stat_count
         mean_ret = torch.where(completed > 0, (ts.stat_return - ts0.stat_return)
                                / torch.clamp_min(completed, 1.0), float("nan"))
-        ts = ts.replace(timesteps=ts0.timesteps + traj.done.numel())
+        completions = (traj.status == 3).sum()
+        world = 1
+        if mesh is not None:
+            (completions,), world = mesh.sum([completions]), mesh.world_size
+        ts = ts.replace(timesteps=ts0.timesteps + traj.done.numel() * world)
         metrics.update(ep_rew_mean=mean_ret, episodes=completed,
-                       completions=(traj.status == 3).sum(), timesteps=ts.timesteps)
+                       completions=completions, timesteps=ts.timesteps)
         return ts, metrics
 
     # ------------------------------------------------------------------
@@ -570,18 +619,20 @@ class PPO:
         return ts
 
     def learn(self, total_timesteps=None, log_fn=None, state=None,
-              checkpoint_fn=None, checkpoint_every: int = 0) -> TrainState:
-        """``total_timesteps // (n_steps * n_envs)`` updates (at least one).
-        ``log_fn(update, metrics)`` gets the metrics as Python numbers;
-        ``checkpoint_fn(update, ts)`` fires every ``checkpoint_every``
-        updates (0 = only the caller's final save)."""
+              checkpoint_fn=None, checkpoint_every: int = 0, mesh=None) -> TrainState:
+        """``total_timesteps // (n_steps * n_envs * W)`` updates (at least
+        one), W the ranks of ``mesh`` (1 without).  ``log_fn(update,
+        metrics)`` gets the metrics as Python numbers; ``checkpoint_fn(update,
+        ts)`` fires every ``checkpoint_every`` updates (0 = only the caller's
+        final save)."""
         cfg = self.cfg
         total = total_timesteps or cfg.total_timesteps
         ts = self.init_state() if state is None else state
-        n_updates = max(1, total // (cfg.n_steps * cfg.n_envs))
+        world = 1 if mesh is None else mesh.world_size
+        n_updates = max(1, total // (cfg.n_steps * cfg.n_envs * world))
         for u in range(n_updates):
             ts = self.apply_curriculum(ts, u, n_updates)
-            ts, metrics = self.train_step(ts)
+            ts, metrics = self.train_step(ts, mesh=mesh)
             if log_fn is not None:
                 log_fn(u, {k: v.item() if isinstance(v, torch.Tensor) else v
                            for k, v in metrics.items()})

@@ -1,12 +1,14 @@
 """The port stands alone: importing ``gym_puzzles_tpu_torch`` (every module
 that holds a kernel's wrapper, the learner in ``train``, the pixel pipeline,
 the host surface -- old-Gym adapters, host rasterizer and its C++ loader,
-viewer, teleop -- and the extras: scripted controllers, imitation, sweeps,
-profiling), stepping each env family on the CPU through both backends,
+viewer, teleop -- the extras: scripted controllers, imitation, sweeps,
+profiling -- and the distribution: ``parallel``, its mesh, heartbeat and
+scaling bench), stepping each env family on the CPU through both backends,
 running one PPO update with each policy (MLP; CNN on the image env), a
-single env step with a host-rendered frame, a BC round and a one-trial
-sweep load neither JAX, flax, optax, orbax nor the JAX package; and without
-a CUDA device no entry point picks a device on its own."""
+single env step with a host-rendered frame, a BC round, a one-trial sweep
+and one ``DistributedPPO`` update on a one-rank gloo group load neither JAX,
+flax, optax, orbax nor the JAX package; and without a CUDA device no entry
+point picks a device on its own."""
 
 import json
 import subprocess
@@ -19,6 +21,7 @@ import torch
 import gym_puzzles_tpu_torch as gpt
 from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
 from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
+from gym_puzzles_tpu_torch.parallel import DistributedPPO, scaling_bench
 from gym_puzzles_tpu_torch.train import imitate, sweep
 from gym_puzzles_tpu_torch.train.ppo import PPOConfig
 
@@ -82,6 +85,21 @@ assert int(ts.timesteps) == 4
 rows = sweep.run_fast_sweep(small, trials=1, budget_timesteps=4, log=lambda line: None,
                             device="cpu")
 assert rows[0]["final_state"] is not None
+import tempfile
+import gym_puzzles_tpu_torch.parallel.mesh, gym_puzzles_tpu_torch.parallel.health
+import gym_puzzles_tpu_torch.parallel.scaling_bench
+from gym_puzzles_tpu_torch.parallel import DistributedPPO, Heartbeat, init_distributed
+with tempfile.TemporaryDirectory() as tmp:
+    init_distributed(world_size=1)  # one process: does nothing
+    assert not torch.distributed.is_initialized()
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp}/rdv", world_size=1,
+                                         rank=0)
+    dppo = DistributedPPO(small, device="cpu")
+    assert dppo.mesh.backend == "gloo"
+    ts, metrics = dppo.train_step(dppo.init_state())
+    Heartbeat(timeout=30.0).ping()
+    assert int(ts.timesteps) == 4 and bool(torch.isfinite(metrics["loss"]))
+    torch.distributed.destroy_process_group()
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -108,7 +126,9 @@ def test_make_without_cuda_raises(monkeypatch):
                   lambda: ImageObsEnv(),
                   lambda: imitate.bc_train(small, rounds=1),
                   lambda: sweep.run_fast_sweep(small, trials=1),
-                  lambda: sweep.run_local_sweep(trials=1)):
+                  lambda: sweep.run_local_sweep(trials=1),
+                  lambda: DistributedPPO(small),
+                  lambda: scaling_bench.run()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 
