@@ -36,12 +36,14 @@ Phases (each raises on failure; the script exits non-zero on any):
    normalizer, env state, generators, metrics); each update's wall time,
    env-steps/s including the learner, and the split of timed updates into
    env step, policy forward, GAE and update;
-8. eval of the committed v0 policy (``gym_puzzles_tpu_torch/policies/``):
-   its deterministic actions on the obs of 4096 resets on the card against
-   the CPU (1e-5), then 4096 deterministic episodes of at most 2000 steps through
-   ``evaluate_policy_batched`` (fused): completion share (``done_status`` 3) in
-   [0.82, 0.93] and mean return in [5190, 6800], the bands around the JAX
-   package's record for this policy (337/384, mean 5992);
+8. eval of the committed v0 policy (``gym_puzzles_tpu_torch/policies/``)
+   through ``check_policy``: its deterministic actions on the obs of 4096
+   resets on the card against the CPU (1e-5), then 4096 deterministic
+   episodes of at most 2000 steps through ``evaluate_policy_batched``
+   (fused), one kernel-A launch per env step: completion share
+   (``done_status`` 3) in [0.82, 0.93] and mean return in [5190, 6800], the
+   bands around the JAX package's record for this policy (337/384, mean
+   5992);
 9. pixels (the image pipeline, whose physics is the fused tick kernel at
    frameskip 4): the on-device renderer on the card against the same
    renderer on the CPU (4096 v0 spawns, human vision; 1024 v2 spawns, agent
@@ -95,7 +97,25 @@ Phases (each raises on failure; the script exits non-zero on any):
    (c) the scaling bench's n = 1 row at its defaults and one update of
    ``torchrun --nproc_per_node 1 -m gym_puzzles_tpu_torch.train.cli
    --distributed``;
-6. (run after 7-13) both kernels' times per variant, beside the mean
+14. the JAX package's variant policies (v2 r4, v2 83 r5, v3 r4, Heavy-v2
+   r4, Heavy-v0 H2 r5; files in ``gym_puzzles_tpu_torch/policies/``) through
+   ``check_policy`` at their registered episode limits (2000, 1500 for v3,
+   3000 for Heavy-v0), 4096 episodes each: card against CPU actions, one
+   kernel-A launch per env step, the mean return inside three standard
+   errors of the JAX package's record (computed from the record files under
+   ``docs/benchmarks/``) and, but for Heavy-v0, above the registered
+   ``reward_threshold``;
+15. PPO on each variant's recipe at full width through ``train_and_resume``
+   (3 updates, launches counted by the learner's ``env_backend``, the resumed
+   update 3 bitwise with ``env_params``, split by part): v2 and Heavy-v2
+   with ``update_goal``, Heavy-v0 at 16384 envs (kernel A's large size
+   class) with the reward overrides and a 1100-step horizon warm-started
+   from the committed Heavy-v0 policy, v3 on the staged tick (192 launches
+   of the solve kernel, none of kernel A); then kernel A against
+   ``world.step`` in float32 and float64 on 16384 Heavy-v0 spawns
+   (``check_spawns_f64``), equal bit for bit to its launches on 4096-env
+   slices, and both kernels timed there;
+6. (run after 7-15) both kernels' times per variant, beside the mean
    and warp-max live pairs per env of the inputs timed (the sweeps visit
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
@@ -127,6 +147,7 @@ from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
+from gym_puzzles_tpu_torch.envs.config import VARIANTS as VARIANT_CFGS
 from gym_puzzles_tpu_torch.render import _raster_cpp
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
 from gym_puzzles_tpu_torch.render.raster import render_batch
@@ -191,7 +212,8 @@ TIMED_UPDATES = 2  # after the resumed update 3, each split by part
 # package's record of it (README: 337/384 completions, mean 5992 over 3 x 128
 # deterministic episodes, per-episode std ~5,000): three standard errors of
 # the difference between two samples of 384 and 4096 episodes
-POLICY_NPZ = ROOT / "gym_puzzles_tpu_torch" / "policies" / "MultiRobotPuzzle-v0_r4.npz"
+POLICY_DIR = ROOT / "gym_puzzles_tpu_torch" / "policies"
+POLICY_NPZ = POLICY_DIR / "MultiRobotPuzzle-v0_r4.npz"
 EVAL_EPISODES = 4096
 EVAL_MAX_STEPS = 2000
 COMPLETION_BAND = (0.82, 0.93)
@@ -250,6 +272,34 @@ DIST_UPDATES = 3
 DIST_GLOO_RANKS = 2
 DIST_GLOO_UPDATES = 2
 ALLREDUCE_REPS = 200
+# phase 14: the JAX package's variant policies (gym_puzzles_tpu_torch/policies/,
+# each written from checkpoints/<run>/) at their registered episode limits,
+# each held to the band around the JAX package's record of it (the eval files
+# under docs/benchmarks/, 128 deterministic episodes per seed) and, where the
+# JAX package met it, above the registered reward_threshold (Heavy-v0's is
+# unmet there too: docs/BENCHMARKS.md)
+RECORDS = ROOT / "docs" / "benchmarks"
+VARIANT_EVAL_EPISODES = 4096
+VARIANT_POLICIES = (  # (file, env id, the JAX records, hold the threshold)
+    ("MultiRobotPuzzle-v2_r4.npz", "MultiRobotPuzzle-v2",
+     [f"eval_v2_r4_seed{k}_fused.json" for k in range(3)], True),
+    ("MultiRobotPuzzle-v2_83_r5.npz", "MultiRobotPuzzle-v2",
+     [f"eval_v2_83_r5_seed{k}.json" for k in range(2)], True),
+    ("MultiRobotPuzzle-v3_r4.npz", "MultiRobotPuzzle-v3",
+     [f"eval_v3_r4_seed{k}_fused.json" for k in range(3)], True),
+    ("MultiRobotPuzzleHeavy-v2_r4.npz", "MultiRobotPuzzleHeavy-v2",
+     [f"eval_hv2_r4_seed{k}_fused.json" for k in range(3)], True),
+    ("MultiRobotPuzzleHeavy-v0_H2_r5.npz", "MultiRobotPuzzleHeavy-v0",
+     [f"eval_hv0_H2_r5_seed{k}.json" for k in range(3)], False),
+)
+# phase 15: PPO on each variant's recipe at full width, from the config
+# headers of the JAX package's runs (docs/benchmarks/ppo_*.jsonl line 1);
+# each run: (name, PPOConfig, curriculum run length in updates, warm-start
+# policy file or None)
+H2_REWARDS = (("agentDelta", 5.0), ("agentDistance", 0.0), ("blockDelta", 2000.0),
+              ("blockDistance", 0.0))
+VARIANT_TIMED_UPDATES = 0  # the resumed update 3 is the one timed
+HV0_ID, HV0_ENVS = "MultiRobotPuzzleHeavy-v0", 16384  # kernel A's large class at its width
 
 
 def card() -> str:
@@ -464,6 +514,67 @@ def check_spawns(dev, E, seed, env_id=ENV_ID, vel_iters=VI,
     return out, plain_ms
 
 
+def check_spawns_f64(dev, E, seed, env_id) -> tuple[dict, float]:
+    """Kernel A on one tick of E random spawns at 180/60 (exact trig) against
+    ``world.step`` in float32 on the same inputs, held to ``SPAWN_LIMITS``
+    but for the largest position difference, and both against ``world.step``
+    in float64: in every env the kernel's largest position difference from
+    the float64 result may exceed the float32 plain version's by at most
+    ``SPAWN_LIMITS['max']`` (``excess``).  On a large batch a spawn whose deep
+    overlaps float32 cannot resolve stably (the float32 plain version itself
+    1e-4 to 2e-3 m from float64, measured on Heavy-v0) sets the largest
+    difference between any two float32 solves; the float64 solve says which
+    of them is off.  Then the kernel on the whole batch must equal, bit for
+    bit, the kernel on its consecutive ``NUM_ENVS``-env slices.  Returns
+    (differences, plain float32 ms)."""
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id)
+    args = (table, bodies, contacts, force, torque, wake, DT, VI, PI)
+    bk, ck, _ = step_cuda.step_fused(*args, incremental_trig=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp, cp, _ = world.step(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    f64 = lambda x: tree_map(lambda t: t.double() if t.is_floating_point() else t, x)  # noqa
+    b64 = world.step(table, f64(bodies), f64(contacts), f64(force), f64(torque), wake, DT,
+                     VI, PI)[0]
+    env_max = lambda a, b: (a.double() - b.double()).abs().amax(dim=(0, 1))  # noqa: E731
+    d, dk, dp = env_max(bk.pos, bp.pos), env_max(bk.pos, b64.pos), env_max(bp.pos, b64.pos)
+    free = ~cp.touching.any(dim=0)
+    out = dict(no_contact_max=float(d[free].max()) if bool(free.any()) else 0.0,
+               median=float(d.median()), max=float(d.max()), excess=float((dk - dp).max()),
+               angle=maxdiff(bk.angle, bp.angle),
+               impulse=maxdiff(ck.normal_impulse, cp.normal_impulse),
+               impulse_scale=float(cp.normal_impulse.abs().max()))
+    limits = {k: v for k, v in SPAWN_LIMITS.items() if k != "max"}
+    name = (f"fused, {env_id} spawns E={E} 1 tick {VI}/{PI} against world.step in float32 and "
+            f"float64 ({int((~free).sum())} envs in contact)")
+    report(name, out, dict(limits, excess=SPAWN_LIMITS["max"]))
+    for e in (d > SPAWN_LIMITS["max"]).nonzero().flatten().tolist():
+        print(f"    env {e}: kernel - plain32 {float(d[e]):.3e}, kernel - plain64 "
+              f"{float(dk[e]):.3e}, plain32 - plain64 {float(dp[e]):.3e} m", flush=True)
+    print(f"    largest position difference from float64 over the {E} envs: kernel "
+          f"{float(dk.max()):.3e}, plain32 {float(dp.max()):.3e} m; envs beyond "
+          f"{SPAWN_LIMITS['max']:g}: kernel {int((dk > SPAWN_LIMITS['max']).sum())}, plain32 "
+          f"{int((dp > SPAWN_LIMITS['max']).sum())}", flush=True)
+    if not torch.equal(bk.awake, bp.awake):
+        raise AssertionError(f"{name}: awake flags differ")
+    if not all(bool(torch.isfinite(x).all()) for x in (bk.pos, bk.vel, ck.normal_impulse)):
+        raise AssertionError(f"{name}: kernel output not finite")
+    for s0 in range(0, E, NUM_ENVS):
+        part = [tree_map(lambda x: x[..., s0:s0 + NUM_ENVS].contiguous(), x)
+                for x in (bodies, contacts, force, torque, wake)]
+        bs, cs_, _ = step_cuda.step_fused(table, *part, DT, VI, PI, incremental_trig=False)
+        if not (torch.equal(bs.pos, bk.pos[..., s0:s0 + NUM_ENVS])
+                and torch.equal(bs.vel, bk.vel[..., s0:s0 + NUM_ENVS])
+                and torch.equal(cs_.normal_impulse, ck.normal_impulse[..., s0:s0 + NUM_ENVS])):
+            raise AssertionError(f"{name}: envs {s0}-{s0 + NUM_ENVS - 1} differ from a launch "
+                                 f"of those {NUM_ENVS} envs alone")
+    print(f"    the kernel on {E} envs equal bit for bit to {E // NUM_ENVS} launches of "
+          f"{NUM_ENVS}", flush=True)
+    return out, plain_ms
+
+
 def spawn_solve_args(dev, E, seed, env_id, vi=VI, pi=PI):
     """(table, solve args) of E spawns one tick in: the first tick goes
     through the fused kernel, so the second tick's constraints carry
@@ -673,10 +784,10 @@ def check_end_of_drive(dev, env, state, card_line) -> dict:
     return dict(out, ms=ms)
 
 
-def time_kernels(dev, env_id, card_line) -> dict:
-    """Both kernels' time per launch on 4096 spawns of one variant at 180/60
+def time_kernels(dev, env_id, card_line, E=NUM_ENVS) -> dict:
+    """Both kernels' time per launch on E spawns of one variant at 180/60
     (the solve kernel on the second tick's constraints), with their bounds."""
-    table, contacts, bodies, force, torque, wake = spawn_tick(dev, NUM_ENVS, 0, env_id)
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, 0, env_id)
     bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
     fused = lambda: step_cuda.launch(table, bf, pf, pi, DT, VI, PI)
     fused()
@@ -686,7 +797,7 @@ def time_kernels(dev, env_id, card_line) -> dict:
     fused_bound = kernel_bound(table, bf, live, VI, PI)
     fused_live = live_line(live, step_cuda.KERNEL)
 
-    table, solve_args = spawn_solve_args(dev, NUM_ENVS, 0, env_id)
+    table, solve_args = spawn_solve_args(dev, E, 0, env_id)
     planes = solver_cuda.pack(*solve_args)
     solve = lambda: solver_cuda.launch(table, *planes, DT, VI, PI)
     solve()
@@ -701,7 +812,7 @@ def time_kernels(dev, env_id, card_line) -> dict:
               f"{cb.size_class(table)}) {name}: {ms:.3f} ms per launch; {live}; "
               f"bound {b['ms']:.4f} ms ({b['by']}): {b['bytes']} bytes = "
               f"{b['bytes_ms']:.4f} ms, {b['ops']} f32 ops = {b['ops_ms']:.4f} ms, "
-              f"{b['live_rows']} live rows; {NUM_ENVS} envs {VI}/{PI}  "
+              f"{b['live_rows']} live rows; {E} envs {VI}/{PI}  "
               f"[{card_line}]", flush=True)
     return dict(fused_ms=fused_ms, fused_bound=fused_bound, solve_ms=solve_ms,
                 solve_bound=sbound)
@@ -728,18 +839,31 @@ def tree_diff(a, b, path="") -> list[str]:
     return [] if a == b else [path]
 
 
-def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
-    """``TRAIN_UPDATES`` updates of the learner ``algo_fn()`` builds, with the
-    launch counts set to 0 just before and read just after; a save after
-    update 2 restored into a fresh learner must reproduce update 3 bit for
-    bit; then ``timed_updates`` more updates, each split by part (the
-    resumed one is timed too).  Returns (the fresh learner, its state, the
-    launches of each kernel in the counted updates)."""
+def train_and_resume(algo_fn, card_line, timed_updates, what, init_fn=None,
+                     n_updates=None) -> tuple:
+    """``TRAIN_UPDATES`` updates of the learner ``algo_fn()`` builds, from the
+    state ``init_fn(learner)`` makes (default ``learner.init_state()``), with
+    the launch counts set to 0 just before and read just after: exactly
+    ``n_steps x frameskip`` launches per update of the kernel of the
+    learner's ``env_backend`` (the fused tick kernel for ``'fused'``, the
+    solve kernel for ``'pallas'``) and none of the other.  With
+    ``n_updates`` each update is preceded by ``apply_curriculum(ts, update,
+    n_updates)``, as ``PPO.learn`` runs it over a run of that many updates.
+    A save after update 2 restored into a fresh learner must reproduce update
+    3 bit for bit (``env_params``, the curriculum's state, included); then
+    ``timed_updates`` more updates, each split by part (the resumed one is
+    timed too).  Returns (the fresh learner, its state, the launches of each
+    kernel in the counted updates, each update's wall seconds and the
+    splits)."""
     algo = algo_fn()
     on_card(algo, what)
     cfg = algo.cfg
     per_update = cfg.n_steps * cfg.n_envs
-    ts = algo.init_state()
+    init_fn = init_fn or (lambda learner: learner.init_state())
+    curriculum = ((lambda learner, ts, u: learner.apply_curriculum(ts, u, n_updates))
+                  if n_updates else (lambda learner, ts, u: ts))
+    ts = init_fn(algo)
+    steps0 = ckpt.step_count(ts.timesteps)
     params0 = {k: v.clone() for k, v in ts.params.items()}
     torch.cuda.synchronize()
     cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -748,6 +872,7 @@ def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
         walls = []
         for u in range(TRAIN_UPDATES):
             t0 = time.perf_counter()
+            ts = curriculum(algo, ts, u)
             ts, metrics = algo.train_step(ts)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
@@ -764,11 +889,14 @@ def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
             if bad:
                 raise AssertionError(f"{what}: non-finite metrics {bad}")
         launches = launch_counts()
-        want = TRAIN_UPDATES * cfg.n_steps * algo.env.cfg.frameskip
-        if launches != {"step_fused": want, "solve_contacts": 0}:
-            raise AssertionError(f"{what}: launches {launches}, expected {want} of step_fused "
-                                 "and none of solve_contacts")
-        if ts.timesteps.dtype != torch.int64 or int(ts.timesteps) != TRAIN_UPDATES * per_update:
+        n = TRAIN_UPDATES * cfg.n_steps * algo.env.cfg.frameskip
+        want = ({"step_fused": n, "solve_contacts": 0} if cfg.env_backend == "fused"
+                else {"step_fused": 0, "solve_contacts": n})
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, expected {want} "
+                                 f"(env_backend {cfg.env_backend!r})")
+        if (ts.timesteps.dtype != torch.int64
+                or int(ts.timesteps) != steps0 + TRAIN_UPDATES * per_update):
             raise AssertionError(f"{what}: timesteps {ts.timesteps!r}")
         moved = sum(int((ts.params[k] != params0[k]).sum()) for k in params0)
         if not moved:
@@ -784,6 +912,7 @@ def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
         fresh = algo_fn()
         rs = ckpt.restore(tmp, fresh.init_state(), saved_at)
     timer = PhaseTimer(fresh.device)
+    rs = curriculum(fresh, rs, TRAIN_UPDATES - 1)
     rs, rmetrics = fresh.train_step(rs, timer=timer)
     diff = (tree_diff(ckpt.to_tree(rs), ckpt.to_tree(ts), "state")
             + tree_diff(ckpt.to_tree(rmetrics), ckpt.to_tree(metrics), "metrics"))
@@ -791,10 +920,11 @@ def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
         raise AssertionError(f"{what}: the resumed update {TRAIN_UPDATES} differs in {diff}")
     print(f"  resume: saved after update {TRAIN_UPDATES - 1} (step {saved_at}), restored into a "
           f"fresh learner: update {TRAIN_UPDATES} equal bit for bit (params, Adam state, "
-          f"normalizer, env state, generators, metrics)  [{card_line}]", flush=True)
+          f"normalizer, env state, generators, env_params, metrics)  [{card_line}]", flush=True)
     splits = [timer.seconds]
-    for _ in range(timed_updates):
+    for k in range(timed_updates):
         timer = PhaseTimer(fresh.device)
+        rs = curriculum(fresh, rs, TRAIN_UPDATES + k)
         rs, _ = fresh.train_step(rs, timer=timer)
         splits.append(timer.seconds)
     for k, sp in enumerate(splits):
@@ -802,7 +932,7 @@ def train_and_resume(algo_fn, card_line, timed_updates, what) -> tuple:
         print(f"  timed update {TRAIN_UPDATES + k}: {total:.3f} s = "
               + ", ".join(f"{name} {sec:.3f} s ({sec / total:.1%})" for name, sec in sp.items())
               + f"  [{card_line}]", flush=True)
-    return fresh, rs, launches
+    return fresh, rs, launches, walls, splits
 
 
 def run_training(card_line) -> int:
@@ -816,21 +946,27 @@ def run_training(card_line) -> int:
           f"epochs {cfg.n_epochs} lr {cfg.learning_rate} target_kl {cfg.target_kl} "
           f"net {cfg.net_arch} backend {cfg.env_backend} "
           f"{cfg.velocity_iters or VI}/{cfg.position_iters or PI}  [{card_line}]", flush=True)
-    _algo, _ts, launches = train_and_resume(lambda: PPO(cfg), card_line, TIMED_UPDATES, "train")
+    launches = train_and_resume(lambda: PPO(cfg), card_line, TIMED_UPDATES, "train")[2]
     return launches["step_fused"]
 
 
-def run_eval(card_line):
-    """Phase 8: the committed v0 policy's deterministic actions on the card
-    against the CPU, then ``EVAL_EPISODES`` deterministic episodes held to the
-    bands around the JAX package's record."""
-    cfg = PPOConfig(env_id=ENV_ID, n_envs=1, n_steps=2, batch_size=2, n_epochs=1)
+def check_policy(npz, env_id, n_episodes, max_steps, card_line) -> dict:
+    """A committed policy file on ``env_id``: its deterministic actions on the
+    obs of ``n_episodes`` reference resets on the card against the CPU (the
+    clipped actions, and the unclipped means relative to max(1, |mean|),
+    within ``ACTION_TOL``), then ``n_episodes`` deterministic episodes of at
+    most ``max_steps`` steps through ``evaluate_policy_batched`` (fused,
+    180/60), launches counted: exactly one of the fused tick kernel per env
+    step the eval takes (``max_steps`` plus the reference reset's random step,
+    unless every lane ended earlier, at a chunk's end) and none of the solve
+    kernel.  Returns the eval's numbers."""
+    cfg = PPOConfig(env_id=env_id, n_envs=1, n_steps=2, batch_size=2, n_epochs=1)
     algo, algo_cpu = PPO(cfg), PPO(cfg, device="cpu")
     on_card(algo, "the eval learner")
-    st = ckpt.restore_policy(POLICY_NPZ, algo.init_state())
-    st_cpu = ckpt.restore_policy(POLICY_NPZ, algo_cpu.init_state())
-    # the obs of 4096 reference resets (one random step from a spawn)
-    _state, obs = make(ENV_ID, num_envs=EVAL_EPISODES, reset_mode="reference",
+    st = ckpt.restore_policy(npz, algo.init_state())
+    st_cpu = ckpt.restore_policy(npz, algo_cpu.init_state())
+    # the obs of the resets (one random step from a spawn)
+    _state, obs = make(env_id, num_envs=n_episodes, reset_mode="reference",
                        device=algo.device).reset(seed=0)
     with torch.no_grad():
         got = evaluate.policy_action(algo, st.params, st.normalizer, obs, True)
@@ -839,37 +975,158 @@ def run_eval(card_line):
                for a, s, o in ((algo, st, obs), (algo_cpu, st_cpu, obs.cpu()))]
     err = maxdiff(got.cpu(), want)
     raw_err = float(((raw[0].cpu() - raw[1]).abs() / raw[1].abs().clamp_min(1.0)).max())
-    print(f"  deterministic actions of {POLICY_NPZ.name} on the obs of {EVAL_EPISODES} resets, "
-          f"card against CPU: max abs diff {err:.3e} (limit {ACTION_TOL:g}); unclipped means "
-          f"{raw_err:.3e} relative to max(1, |mean|) (limit {ACTION_TOL:g}); "
+    print(f"  {env_id}: deterministic actions of {Path(npz).name} on the obs of {n_episodes} "
+          f"resets, card against CPU: max abs diff {err:.3e} (limit {ACTION_TOL:g}); unclipped "
+          f"means {raw_err:.3e} relative to max(1, |mean|) (limit {ACTION_TOL:g}); "
           f"{float((want.abs() >= 1).float().mean()):.3f} of the actions at the clip  "
           f"[{card_line}]", flush=True)
     if not (err <= ACTION_TOL and raw_err <= ACTION_TOL):
-        raise AssertionError("eval: the card's actions differ from the CPU's")
+        raise AssertionError(f"eval {env_id}: the card's actions differ from the CPU's")
 
     torch.cuda.synchronize()
     step_cuda.reset_launch_count()
     t0 = time.perf_counter()
     ret_mean, ret_std, returns, lengths, statuses = evaluate.evaluate_policy_batched(
-        algo, st, n_episodes=EVAL_EPISODES, deterministic=True, seed=0,
-        max_steps=EVAL_MAX_STEPS)
+        algo, st, n_episodes=n_episodes, deterministic=True, seed=0, max_steps=max_steps)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    lengths = np.asarray(lengths)
-    completions = int((np.asarray(statuses) == 3).sum())  # done_status 3: success
-    share = completions / EVAL_EPISODES
-    print(f"  {EVAL_EPISODES} deterministic episodes (max {EVAL_MAX_STEPS} steps, fused, "
+    launches = launch_counts()
+    lengths, statuses = np.asarray(lengths), np.asarray(statuses)
+    shares = {int(k): float((statuses == k).mean()) for k in np.unique(statuses)}
+    share = shares.get(3, 0.0)  # done_status 3: success
+    # the eval stops at the first chunk's end where every lane has ended
+    chunk = min(200, max_steps)
+    steps = min(max_steps, -(-int(lengths.max()) // chunk) * chunk) + 1
+    print(f"  {env_id}: {n_episodes} deterministic episodes (max {max_steps} steps, fused, "
           f"{VI}/{PI}): mean return {ret_mean:.2f}, std {ret_std:.2f}, completions "
-          f"(done_status 3) {completions}/{EVAL_EPISODES} = {share:.4f} (band "
-          f"{COMPLETION_BAND}; shorter than {EVAL_MAX_STEPS} steps: "
-          f"{int((lengths < EVAL_MAX_STEPS).sum())}), mean return "
-          f"band {RETURN_BAND}; median length {float(np.median(lengths)):.0f}; "
-          f"{wall:.1f} s wall, {step_cuda.launch_count('step_fused')} launches of step_fused  "
-          f"[{card_line}]", flush=True)
+          f"(done_status 3) {int((statuses == 3).sum())}/{n_episodes} = {share:.4f}; "
+          f"done_status shares {shares}; shorter than {max_steps} steps: "
+          f"{int((lengths < max_steps).sum())}; median length {float(np.median(lengths)):.0f}; "
+          f"{wall:.1f} s wall ({steps} env steps, {1e3 * wall / steps:.2f} ms each); launches "
+          f"{launches}  [{card_line}]", flush=True)
+    if launches != {"step_fused": steps, "solve_contacts": 0}:
+        raise AssertionError(f"eval {env_id}: launches {launches}, expected {steps} of "
+                             "step_fused (one per env step) and none of solve_contacts")
     if not (np.isfinite(returns).all() and lengths.min() >= 1):
-        raise AssertionError("eval: non-finite returns or empty episodes")
-    if not (COMPLETION_BAND[0] <= share <= COMPLETION_BAND[1]
-            and RETURN_BAND[0] <= ret_mean <= RETURN_BAND[1]):
+        raise AssertionError(f"eval {env_id}: non-finite returns or empty episodes")
+    return dict(mean=ret_mean, std=ret_std, share=share, shares=shares, wall=wall,
+                steps=steps, launches=launches["step_fused"], err=max(err, raw_err))
+
+
+def run_eval(card_line):
+    """Phase 8: the committed v0 policy through :func:`check_policy`, held to
+    the bands around the JAX package's record."""
+    out = check_policy(POLICY_NPZ, ENV_ID, EVAL_EPISODES, EVAL_MAX_STEPS, card_line)
+    print(f"  completion share band {COMPLETION_BAND}, mean return band {RETURN_BAND}  "
+          f"[{card_line}]", flush=True)
+    if not (COMPLETION_BAND[0] <= out["share"] <= COMPLETION_BAND[1]
+            and RETURN_BAND[0] <= out["mean"] <= RETURN_BAND[1]):
         raise AssertionError("eval: the committed policy left its bands")
+
+
+def record_band(records, n) -> tuple:
+    """The JAX package's records of a policy (``docs/benchmarks`` eval files,
+    one per seed): (pooled mean, population sd, episodes, and the band
+    pooled mean +- 3 sqrt(sd^2 / n_jax + sd^2 / n)), three standard errors
+    of the difference between the records' mean and that of ``n`` new
+    episodes."""
+    returns = np.concatenate([json.loads((RECORDS / f).read_text())["returns"]
+                              for f in records]).astype(np.float64)
+    mean, sd, n_jax = float(returns.mean()), float(returns.std()), len(returns)
+    half = 3.0 * float(np.sqrt(sd ** 2 / n_jax + sd ** 2 / n))
+    return mean, sd, n_jax, (mean - half, mean + half)
+
+
+def run_variant_evals(card_line) -> int:
+    """Phase 14: each of the JAX package's variant policies
+    (``VARIANT_POLICIES``) through :func:`check_policy` at its registered
+    episode limit: the mean return inside the band around the JAX record
+    (:func:`record_band`), and above the registered ``reward_threshold``
+    where the JAX package met it.  Returns the fused kernel's launches."""
+    total = 0
+    for npz, env_id, records, gate_threshold in VARIANT_POLICIES:
+        max_steps = VARIANT_CFGS[env_id].max_episode_steps
+        out = check_policy(POLICY_DIR / npz, env_id, VARIANT_EVAL_EPISODES, max_steps,
+                           card_line)
+        total += out["launches"]
+        mean, sd, n_jax, band = record_band(records, VARIANT_EVAL_EPISODES)
+        threshold = VARIANT_CFGS[env_id].reward_threshold
+        print(f"  {npz}: mean return {out['mean']:.2f} against the JAX record's pooled mean "
+              f"{mean:.1f} (sd {sd:.1f}, {n_jax} episodes): band [{band[0]:.1f}, {band[1]:.1f}]; "
+              f"reward_threshold {threshold:g} "
+              f"({'held' if gate_threshold else 'not held: unmet by the JAX package too'})  "
+              f"[{card_line}]", flush=True)
+        if not band[0] <= out["mean"] <= band[1]:
+            raise AssertionError(f"eval {npz}: mean return {out['mean']:.2f} outside the band "
+                                 f"{band}")
+        if gate_threshold and not out["mean"] > threshold:
+            raise AssertionError(f"eval {npz}: mean return {out['mean']:.2f} not above the "
+                                 f"reward_threshold {threshold}")
+    return total
+
+
+def variant_recipes() -> list:
+    """Phase 15's runs: the v2 recipe (``ppo_v2_leg1_r4.jsonl``: the v2 config
+    at 4096 envs, n_steps 64, batch 8192, 4 epochs, seed 3, ``update_goal``
+    over the leg's 114 updates), the same on Heavy-v2 (``ppo_hv2_leg1_r4``),
+    the Heavy-v0 H2 recipe (``ppo_hv0_H2_r5.jsonl``: 16384 envs, n_steps 32,
+    batch 32768, the reward overrides, a 1100-step horizon, 572 updates),
+    warm-started from the committed H2 policy, and v3 on the staged tick
+    (the v3 config at 4096 / 64 / 8192 / 4, seed 17, ``env_backend='pallas'``:
+    the JAX package's first v3 run, docs/BENCHMARKS.md)."""
+    def load(name):
+        return json.loads((ROOT / "train_configs" / name).read_text())
+    width = dict(n_envs=NUM_ENVS, n_steps=64, batch_size=8192, n_epochs=4)
+    v2 = dict(width, seed=3, update_goal=True, env_backend="fused")
+    return [
+        ("v2", PPOConfig.from_reference_json(load("ppo-mrp-v2.json"), **v2), 114, None),
+        ("Heavy-v2", PPOConfig.from_reference_json(load("ppo-mrp-v2.json"),
+                                                   env_id="MultiRobotPuzzleHeavy-v2", **v2),
+         114, None),
+        ("Heavy-v0", PPOConfig(env_id="MultiRobotPuzzleHeavy-v0", n_envs=16384, n_steps=32,
+                               batch_size=32768, n_epochs=4, learning_rate=2.5e-4, gamma=0.997,
+                               clip_range=0.1, ent_coef=0.001, reward_params=H2_REWARDS,
+                               max_episode_steps=1100, seed=0, env_backend="fused"),
+         572, "MultiRobotPuzzleHeavy-v0_H2_r5.npz"),
+        ("v3 staged", PPOConfig.from_reference_json(load("ppo-mrp-v3.json"), **width, seed=17,
+                                                    env_backend="pallas"), None, None),
+    ]
+
+
+def run_variant_training(card_line) -> dict:
+    """Phase 15: each of :func:`variant_recipes` through
+    :func:`train_and_resume` (3 updates with each kernel's launches counted,
+    the resumed update 3 bitwise, ``env_params`` included, and split by
+    part).  Returns each kernel's launches over the counted updates of all
+    runs."""
+    total = {"step_fused": 0, "solve_contacts": 0}
+    for name, cfg, n_updates, warm in variant_recipes():
+        print(f"  {name}: {cfg.env_id} n_envs {cfg.n_envs} n_steps {cfg.n_steps} batch "
+              f"{cfg.batch_size} epochs {cfg.n_epochs} lr {cfg.learning_rate:.6g} gamma "
+              f"{cfg.gamma} clip {cfg.clip_range} ent {cfg.ent_coef:.6g} seed {cfg.seed} "
+              f"backend {cfg.env_backend} update_goal {cfg.update_goal} reward_params "
+              f"{dict(cfg.reward_params)} max_episode_steps {cfg.max_episode_steps} "
+              f"curriculum over {n_updates} updates; warm start {warm}  [{card_line}]",
+              flush=True)
+        init_fn = None
+        if warm is not None:
+            def init_fn(learner, path=POLICY_DIR / warm):
+                return ckpt.restore_policy(path, learner.init_state())
+        t0 = time.perf_counter()
+        _algo, ts, launches, walls, splits = train_and_resume(
+            lambda cfg=cfg: PPO(cfg), card_line, VARIANT_TIMED_UPDATES, f"PPO {name}",
+            init_fn=init_fn, n_updates=n_updates)
+        per_update = cfg.n_steps * cfg.n_envs
+        print(f"  {name}: {len(walls)} updates at {', '.join(f'{w:.3f}' for w in walls)} s; "
+              f"{len(walls) * per_update / sum(walls):,.0f} env-steps/s including the learner; "
+              f"timed update {sum(splits[0].values()):.3f} s; launches {launches}; "
+              f"env_params after update {TRAIN_UPDATES}: scaled_epsilon "
+              f"{ts.env_params.scaled_epsilon:.6g}, weight_delta_block "
+              f"{ts.env_params.weight_delta_block:g}; {time.perf_counter() - t0:.1f} s in all  "
+              f"[{card_line}]", flush=True)
+        for k in total:
+            total[k] += launches[k]
+    return total
 
 
 def tree_map(fn, x):
@@ -930,7 +1187,7 @@ def run_pixel_training(card_line) -> tuple:
               f"{cfg.velocity_iters}/{cfg.position_iters}; cudnn.deterministic True, "
               f"cudnn.benchmark False  [{card_line}]", flush=True)
         algo, ts, launches = train_and_resume(lambda: PPO(cfg), card_line, CNN_TIMED_UPDATES,
-                                              "CNN PPO")
+                                              "CNN PPO")[:3]
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     print(f"  obs {tuple(ts.last_obs.shape)} {ts.last_obs.dtype}; "
@@ -1699,6 +1956,21 @@ def main() -> int:
     run_dist_entry_points(card_line)
     print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    print("== 14. the JAX package's variant policies held to their records", flush=True)
+    t_phase = time.perf_counter()
+    variant_eval_launches = run_variant_evals(card_line)
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    print("== 15. PPO on each variant's recipe at full width; kernel A's large class at "
+          f"{HV0_ENVS} envs", flush=True)
+    t_phase = time.perf_counter()
+    variant_train = run_variant_training(card_line)
+    hv0_diff, hv0_plain_ms = check_spawns_f64(dev, HV0_ENVS, seed=2, env_id=HV0_ID)
+    hv0 = time_kernels(dev, HV0_ID, card_line, E=HV0_ENVS)
+    print(f"  world.step on {HV0_ENVS} {HV0_ID} spawns {VI}/{PI}: {hv0_plain_ms:.1f} ms per "
+          f"tick  [{card_line}]", flush=True)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -1728,13 +2000,18 @@ def main() -> int:
              bc_launches=bc["launches"], bc_resume_launches=bc["resume_launches"],
              sweep_launches=sweep_run["launches"],
              dist_launches=dist_w1["launches"], dist_gloo_launches=dist_gloo["launches"],
+             variant_eval_launches=variant_eval_launches,
+             variant_train_launches=variant_train["step_fused"],
+             hv0_16k_ms=hv0["fused_ms"], hv0_16k_bound_ms=hv0["fused_bound"]["ms"],
+             hv0_16k_bound_by=hv0["fused_bound"]["by"], hv0_16k_plain_ms=hv0_plain_ms,
+             hv0_16k_max_abs_err=hv0_diff["max"],
              max_abs_err=spawn_diff["max"],
              ms=v0["fused_ms"], plain_ms=plain_ms,
              bound_ms=v0["fused_bound"]["ms"], bound_by=v0["fused_bound"]["by"]),
         dict(common, name="solve_contacts",
              source="gym_puzzles_tpu_torch/csrc/solve_contacts.cu",
              replaces="gym_puzzles_tpu/engine/solver_pallas.py:557",
-             launches=staged_run["launches"],
+             launches=staged_run["launches"], train_launches=variant_train["solve_contacts"],
              max_abs_err=solve_diff["max"],
              ms=v0["solve_ms"], plain_ms=solve_plain_ms,
              bound_ms=v0["solve_bound"]["ms"], bound_by=v0["solve_bound"]["by"]),

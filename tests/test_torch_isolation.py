@@ -4,7 +4,8 @@ the host surface -- old-Gym adapters, host rasterizer and its C++ loader,
 viewer, teleop -- the extras: scripted controllers, imitation, sweeps,
 profiling -- and the distribution: ``parallel``, its mesh, heartbeat and
 scaling bench), stepping each env family on the CPU through both backends,
-running one PPO update with each policy (MLP; CNN on the image env), a
+running one PPO update with each policy (MLP; CNN on the image env),
+restoring every committed policy file and taking one eval step of it, a
 single env step with a host-rendered frame, a BC round, a one-trial sweep
 and one ``DistributedPPO`` update on a one-rank gloo group load neither JAX,
 flax, optax, orbax nor the JAX package; and without a CUDA device no entry
@@ -85,6 +86,18 @@ assert int(ts.timesteps) == 4
 rows = sweep.run_fast_sweep(small, trials=1, budget_timesteps=4, log=lambda line: None,
                             device="cpu")
 assert rows[0]["final_state"] is not None
+from pathlib import Path
+from gym_puzzles_tpu_torch.train import checkpoint as ckpt, evaluate
+npzs = sorted(Path("gym_puzzles_tpu_torch/policies").glob("*.npz"))
+assert len(npzs) == 6, npzs
+for npz in npzs:
+    env_id = npz.name.split("_")[0]
+    pol = PPO(PPOConfig(env_id=env_id, n_envs=1, n_steps=2, batch_size=2, n_epochs=1),
+              device="cpu")
+    st = ckpt.restore_policy(npz, pol.init_state())
+    mean, _std, returns, lengths, _st = evaluate.evaluate_policy_batched(
+        pol, st, n_episodes=1, max_steps=1, velocity_iters=2, position_iters=1)
+    assert int(st.timesteps) > 0 and lengths == [1] and returns[0] == returns[0], npz
 import tempfile
 import gym_puzzles_tpu_torch.parallel.mesh, gym_puzzles_tpu_torch.parallel.health
 import gym_puzzles_tpu_torch.parallel.scaling_bench

@@ -127,6 +127,75 @@ def test_reward_params_curriculum_bitwise(variant):
                         ref.update_goal(epoch, n, ref.scaled_epsilon))
 
 
+# --------------------------------------------------------------------------
+# apply_curriculum against the JAX learner's, update by update
+# --------------------------------------------------------------------------
+
+H2_REWARDS = (("agentDelta", 5.0), ("agentDistance", 0.0), ("blockDelta", 2000.0),
+              ("blockDistance", 0.0))
+# each recipe's config fields and its updates' step counts (the counter
+# apply_curriculum reads as it stands before each update)
+CURRICULA = {
+    # the v2 recipe (docs/benchmarks/ppo_v2_leg1_r4.jsonl): 114 updates
+    "v2_update_goal": (dict(env_id="MultiRobotPuzzle-v2", update_goal=True),
+                       [u * 262_144 for u in range(115)]),
+    # the Heavy-v0 H2 recipe (ppo_hv0_H2_r5.jsonl), the weights held and
+    # annealed back over 5 updates
+    "hv0_H2_rewards": (dict(env_id="MultiRobotPuzzleHeavy-v0", reward_params=H2_REWARDS),
+                       [1_499_463_680 + u * 524_288 for u in range(8)]),
+    "hv0_H2_rewards_anneal5": (dict(env_id="MultiRobotPuzzleHeavy-v0", reward_params=H2_REWARDS,
+                                    reward_anneal_updates=5),
+                               [1_499_463_680 + u * 524_288 for u in range(8)]),
+    # shaped rewards decayed and grown, across 180M steps and up to int32's end
+    **{f"decay_{decay}": (dict(env_id="MultiRobotPuzzle-v0", update_params_decay=decay),
+                          [0, 1, 262_144, 1_000_000, 79_953_920, 179_830_784, 180_000_000,
+                           2**31 - 1])
+       for decay in (0.99999, 1.0000001)},
+    # linear lr decay over the v0 leg-1 recipe's 305 updates
+    "anneal_lr": (dict(env_id="MultiRobotPuzzle-v0", anneal_lr=True),
+                  [u * 262_144 for u in range(306)]),
+}
+
+
+@pytest.mark.parametrize("recipe", list(CURRICULA))
+def test_apply_curriculum_matches_jax_bitwise(recipe):
+    """Both learners built from the same config fields; ``apply_curriculum(ts,
+    update, n_updates)`` chained over updates 0..N, each call on the step
+    count that update starts from: every ``RewardParams`` field and the
+    learning rate equal to the JAX package's by their float32 bits."""
+    fields, steps = CURRICULA[recipe]
+    fields = dict(fields, n_envs=2, n_steps=2, batch_size=2, n_epochs=1, velocity_iters=2,
+                  position_iters=1)
+    talgo = tppo.PPO(tppo.PPOConfig(**fields), device="cpu")
+    jalgo = jppo.PPO(jppo.PPOConfig(**fields, env_backend="xla"))
+    ts = talgo.init_state()
+    jts = jppo.TrainState(
+        params=None, opt_state=None, normalizer=None, vstate=None, last_obs=None, key=None,
+        timesteps=None, ep_return=None, ep_len=None, stat_return=None, stat_count=None,
+        env_params=jax.tree_util.tree_map(jnp.asarray, jalgo.env_params),
+        hparams=jppo.HParams.from_config(jalgo.cfg))
+    _assert_bitwise(ts.env_params, jts.env_params)
+    n_updates = len(steps) - 1
+    seen = set()
+    for update, t in enumerate(steps):
+        ts = talgo.apply_curriculum(ts.replace(timesteps=torch.tensor(t, dtype=torch.int64)),
+                                    update, n_updates)
+        jts = jalgo.apply_curriculum(jts.replace(timesteps=jnp.asarray(t, jnp.int32)),
+                                     update, n_updates)
+        _assert_bitwise(ts.env_params, jts.env_params)
+        for k in ("learning_rate", "lr_base"):
+            a = np.float32(getattr(ts.hparams, k))
+            b = np.float32(np.asarray(getattr(jts.hparams, k)))
+            assert a.view(np.uint32) == b.view(np.uint32), (update, k, a, b)
+        seen.add((ts.env_params, ts.hparams.learning_rate))
+    # the schedule moved what it schedules; held weights stayed the overrides
+    if recipe == "hv0_H2_rewards":
+        assert seen == {(talgo.env_params, ts.hparams.lr_base)}
+        assert talgo.env_params != talgo.default_env_params
+    else:
+        assert len(seen) > 1
+
+
 @pytest.mark.parametrize("name", ["ppo-mrp-v0.json", "ppo-mrp-v2.json", "ppo-mrp-v3.json"])
 def test_config_from_reference_json(name):
     config = json.loads((ROOT / "train_configs" / name).read_text())

@@ -56,6 +56,31 @@ def test_exact_resume(one_update):
     assert int(ts.timesteps) == 16
 
 
+def test_exact_resume_with_curriculum(tmp_path):
+    """v2 with ``update_goal``, each update preceded by ``apply_curriculum``
+    as ``learn`` does: saved after update 1 and restored into a fresh
+    learner, update 2 equals the uninterrupted run's bitwise, the shrinking
+    goal epsilon (``env_params``) included."""
+    cfg = tiny_cfg(env_id="MultiRobotPuzzle-v2", update_goal=True)
+    n_updates = 4
+    algo = PPO(cfg, device="cpu")
+    ts = algo.init_state()
+    for u in range(2):
+        ts = algo.apply_curriculum(ts, u, n_updates)
+        ts, m = algo.train_step(ts)
+        if u == 0:
+            ckpt.save(tmp_path, ts, ckpt.step_count(ts.timesteps))
+            saved_params = ts.env_params
+    resumed = PPO(cfg, device="cpu")
+    rs = ckpt.restore(tmp_path, resumed.init_state())
+    assert rs.env_params == saved_params != resumed.env_params
+    rs = resumed.apply_curriculum(rs, 1, n_updates)
+    rs, rm = resumed.train_step(rs)
+    assert_trees_equal(rs, ts)
+    assert_trees_equal(rm, m)
+    assert rs.env_params.scaled_epsilon < saved_params.scaled_epsilon
+
+
 def test_restore_policy_across_batch_sizes(one_update, tmp_path):
     """Params, normalizer moments and timesteps graft into a template of
     another batch size, from the checkpoint and from its exported policy

@@ -298,22 +298,53 @@ def assert_frames_match(got, want, edge_share=1e-3):
 
 
 # --------------------------------------------------------------------------
-# the committed policy: the JAX package's slim v0 checkpoint as the port's
-# policy file
+# the committed policies: the JAX package's slim checkpoints as the port's
+# policy files
 # --------------------------------------------------------------------------
 
 ROOT = Path(__file__).resolve().parent.parent
-V0_POLICY_CHECKPOINT = ROOT / "checkpoints" / "v0_r4" / "MultiRobotPuzzle-v0"
-V0_POLICY_NPZ = ROOT / "gym_puzzles_tpu_torch" / "policies" / "MultiRobotPuzzle-v0_r4.npz"
+POLICY_DIR = ROOT / "gym_puzzles_tpu_torch" / "policies"
+
+
+@dataclasses.dataclass(frozen=True)
+class CommittedPolicy:
+    """A JAX package checkpoint and the port's policy file written from it."""
+
+    checkpoint: Path
+    npz: Path
+    env_id: str
+    timesteps: int  # the env steps the JAX run trained it for
+
+
+def _policy(run, env_id, name, timesteps):
+    return CommittedPolicy(ROOT / "checkpoints" / run / env_id, POLICY_DIR / f"{name}.npz",
+                           env_id, timesteps)
+
+
+# name -> policy; the JAX package's records of each are docs/benchmarks/eval_<run>_*.json
+POLICIES = {
+    "v0_r4": _policy("v0_r4", "MultiRobotPuzzle-v0", "MultiRobotPuzzle-v0_r4", 179_830_784),
+    "v2_r4": _policy("v2_r4", "MultiRobotPuzzle-v2", "MultiRobotPuzzle-v2_r4", 94_633_984),
+    "v2_83_r5": _policy("v2_83_r5", "MultiRobotPuzzle-v2", "MultiRobotPuzzle-v2_83_r5",
+                        94_633_984),
+    "v3_r4": _policy("v3_r4", "MultiRobotPuzzle-v3", "MultiRobotPuzzle-v3_r4", 119_799_808),
+    "hv2_r4": _policy("hv2_r4", "MultiRobotPuzzleHeavy-v2", "MultiRobotPuzzleHeavy-v2_r4",
+                      94_633_984),
+    "hv0_H2_r5": _policy("hv0_H2_r5", "MultiRobotPuzzleHeavy-v0",
+                         "MultiRobotPuzzleHeavy-v0_H2_r5", 1_799_356_416),
+}
+V0_POLICY_CHECKPOINT = POLICIES["v0_r4"].checkpoint
+V0_POLICY_NPZ = POLICIES["v0_r4"].npz
 
 
 def export_jax_policy(checkpoint=V0_POLICY_CHECKPOINT, out=V0_POLICY_NPZ):
     """Write the policy of a JAX package checkpoint (full or slim) as the
     port's policy file, through the JAX package's own reader.  From the
-    repo root:
+    repo root, every committed file:
 
         JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests'); \\
-            import torch_port_helpers as h; h.export_jax_policy()"
+            import torch_port_helpers as h; \\
+            [h.export_jax_policy(p.checkpoint, p.npz) for p in h.POLICIES.values()]"
     """
     from gym_puzzles_tpu.train import checkpoint as jckpt
     from gym_puzzles_tpu.train.export import load_policy_subtree
