@@ -24,8 +24,9 @@ Phases (each raises on failure; the script exits non-zero on any):
    each, and on 12-tick v0 and v2 contact drives;
 5. the main paths at 4096 envs and 180/60, 200 steps of random actions each
    through ``make(...)`` with the default device: v0 fused, v0 and v2 staged
-   (``backend='pallas'``), v2 and v3 fused; every output finite; exactly
-   200 x frameskip launches of the path's kernel and none of the other;
+   (``backend='pallas'``), v2 and v3 fused; each step a CUDA graph replay
+   (captured at the first warm-up step); every output finite; exactly 200 x
+   frameskip launches of the path's kernel and none of the other;
 7. train: PPO on v0 at 4096 envs through ``train.ppo.PPO`` (fused backend,
    180/60, ActorCritic 256x256, the JAX package's full-width recipe: n_steps
    64, batch 8192, 4 epochs, the rest from ``train_configs/ppo-mrp-v0.json``)
@@ -52,8 +53,8 @@ Phases (each raises on failure; the script exits non-zero on any):
    n_steps 32, batch 2048, 2 epochs, seed 0) through ``train_and_resume`` as
    in phase 7 with cuDNN held deterministic: 384 launches of the fused tick
    kernel in 3 updates and none of the solve kernel, the resumed update
-   bitwise, one more update split into physics, render, policy, GAE and
-   update; the policy those updates produce: deterministic actions on the
+   bitwise, one more update split into rollout (one CUDA graph), policy, GAE
+   and update; the policy those updates produce: deterministic actions on the
    obs of 256 reference resets on the card against the CPU, then 256
    deterministic episodes of at most 100 steps at 180/60 through
    ``evaluate_policy_batched`` (4 launches per env step); kernel A at the
@@ -115,7 +116,20 @@ Phases (each raises on failure; the script exits non-zero on any):
    ``world.step`` in float32 and float64 on 16384 Heavy-v0 spawns
    (``check_spawns_f64``), equal bit for bit to its launches on 4096-env
    slices, and both kernels timed there;
-6. (run after 7-15) both kernels' times per variant, beside the mean
+16. (run after 15) the CUDA graphs against the eager bodies they capture,
+   every output bit for bit (``mismatches``: the elements whose bits
+   differ), launches exact (each graph holds ``frameskip`` launches; two per
+   tick, replay and eager): 200 steps at 4096 envs and 180/60 of v0,
+   Heavy-v0, v2 and v3 on both ticks (v0 fused reseeded by ``reset(seed=1)``
+   after the capture, v2 with ``update_goal`` changed half way), Heavy-v0 at
+   16384 envs, a v0 and a v2 graph stepped in turn (each replay on its own
+   world table), the image env at 256 envs and 60/20 (frames), and two
+   chained ``PPO.rollout`` replays at the v0 and pixel recipes against
+   ``PPO.rollout_eager``; then, graph against eager in this call, the v0
+   main path's env-steps/s (in turns), PPO env-steps/s past update 1 at both
+   recipes, and kernels run, host launch calls and busy share per traced
+   flat and pixel step (``profile_step.profile_path``); peak device memory;
+6. (run after 7-16) both kernels' times per variant, beside the mean
    and warp-max live pairs per env of the inputs timed (the sweeps visit
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
@@ -140,13 +154,14 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from gym_puzzles_tpu_torch import make
+from gym_puzzles_tpu_torch import make, profile_step
 from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
-from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
+from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv, ImageObsEnv
 from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
+from gym_puzzles_tpu_torch.envs.config import V2_EPSILON
 from gym_puzzles_tpu_torch.envs.config import VARIANTS as VARIANT_CFGS
 from gym_puzzles_tpu_torch.render import _raster_cpp
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
@@ -157,6 +172,7 @@ from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.ppo import PPO, PhaseTimer, PPOConfig
+from gym_puzzles_tpu_torch.utils import cuda_graph
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
@@ -300,6 +316,17 @@ H2_REWARDS = (("agentDelta", 5.0), ("agentDistance", 0.0), ("blockDelta", 2000.0
               ("blockDistance", 0.0))
 VARIANT_TIMED_UPDATES = 0  # the resumed update 3 is the one timed
 HV0_ID, HV0_ENVS = "MultiRobotPuzzleHeavy-v0", 16384  # kernel A's large class at its width
+# phase 16: the env step, the image env step and the rollout as CUDA graphs,
+# each replay held against the eager body (same seeds, same inputs) bit for
+# bit: every variant on both ticks at the main path's width and length (v0
+# fused with a reset(seed=1) after the capture, v2 with an update_goal change
+# half way), Heavy-v0 at 16384 envs, a v0 and a v2 graph stepped in turn,
+# the pixel path's image env, and two chained rollouts at the v0 and pixel
+# recipes; then graph against eager rates and kernels per step in this call
+GRAPH_CHANGE_AT = MAIN_STEPS // 2
+GRAPH_SHORT_STEPS = 50  # Heavy-v0 at 16384 envs, the alternating pair, the image env
+RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
+PROFILE_STEPS = 20
 
 
 def card() -> str:
@@ -692,21 +719,24 @@ def cuda_ms(fn, n) -> float:
     return start.elapsed_time(stop) / n
 
 
-def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STEPS) -> dict:
+def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STEPS,
+                  eager=False) -> dict:
     """``steps`` env steps of random actions through ``make`` at 4096 envs
-    and 180/60, with the launch counts set to 0 just before and read just
-    after: the path's kernel must have run steps x frameskip times and the
-    other kernel not at all.  Returns the launches, the rate, and the env and
-    its state at the end."""
+    and 180/60 (``env.step``, CUDA graph replays; with ``eager``, the body
+    the graph captures, ``env.step_eager``), with the launch counts set to 0
+    just before and read just after: the path's kernel must have run steps x
+    frameskip times and the other kernel not at all.  Returns the launches,
+    the rate, and the env and its state at the end."""
     env = make(env_id, num_envs=NUM_ENVS, backend=backend)
     if env.device.type != "cuda":
         raise AssertionError(f"make() defaulted to {env.device}")
+    step = env.step_eager if eager else env.step
     state, obs = env.reset(seed=0)
     gen = torch.Generator(device=dev).manual_seed(1)
     acts = torch.rand((steps + 10, NUM_ENVS, env.cfg.act_dim), generator=gen,
                       device=dev) * 2 - 1
-    for k in range(10):  # warm-up
-        state, obs, reward, done, info = env.step(state, acts[steps + k])
+    for k in range(10):  # warm-up (the first step captures the graph)
+        state, obs, reward, done, info = step(state, acts[steps + k])
     torch.cuda.synchronize()
 
     step_cuda.reset_launch_count()
@@ -714,14 +744,14 @@ def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STE
     start.record()
     finite = torch.ones((), dtype=torch.bool, device=dev)
     for k in range(steps):
-        state, obs, reward, done, info = env.step(state, acts[k])
+        state, obs, reward, done, info = step(state, acts[k])
         finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
     stop.record()
     stop.synchronize()
     launches = launch_counts()
     elapsed_s = start.elapsed_time(stop) / 1e3
 
-    name = f"{env_id} backend={backend}"
+    name = f"{env_id} backend={backend}{' eager body' if eager else ''}"
     mine, other = (("step_fused", "solve_contacts") if backend == "fused"
                    else ("solve_contacts", "step_fused"))
     if launches[mine] != steps * env.cfg.frameskip or launches[other] != 0:
@@ -1191,9 +1221,10 @@ def run_pixel_training(card_line) -> tuple:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     print(f"  obs {tuple(ts.last_obs.shape)} {ts.last_obs.dtype}; "
-          f"{sum(v.numel() for v in ts.params.values())} params; timed parts: env = physics "
-          f"(fused tick kernel, {algo.env.cfg.frameskip} launches per step) and reward "
-          f"bookkeeping, render = frames and stacks", flush=True)
+          f"{sum(v.numel() for v in ts.params.values())} params; timed parts: rollout = one "
+          f"CUDA graph of {cfg.n_steps} steps (physics: fused tick kernel, "
+          f"{algo.env.cfg.frameskip} launches per step; render and stacks; policy; reward "
+          f"bookkeeping), policy = the bootstrap value", flush=True)
     return algo, ts, launches
 
 
@@ -1845,6 +1876,236 @@ def run_dist_entry_points(card_line) -> dict:
           flush=True)
     return dict(row=row, cli_s=wall)
 
+# --------------------------------------------------------------------------
+# phase 16: CUDA graphs against their eager bodies
+# --------------------------------------------------------------------------
+
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64, torch.bfloat16: torch.int16,
+         torch.float16: torch.int16, torch.bool: torch.uint8}
+
+
+def mismatches(a, b) -> torch.Tensor:
+    """The elements in which two trees of tensors differ in their bits (a
+    device count, no host read); raises if the trees differ in structure."""
+    la, sa = cuda_graph.flatten(a)
+    lb, sb = cuda_graph.flatten(b)
+    if sa != sb:
+        raise AssertionError("the graph's outputs and the eager body's differ in structure")
+    bits = lambda x: x.view(_BITS.get(x.dtype, x.dtype))  # noqa: E731
+    return sum(((bits(x) != bits(y)).sum() for x, y in zip(la, lb)),
+               torch.zeros((), dtype=torch.int64, device=la[0].device))
+
+
+def replay_against_eager(dev, card_line, pairs, steps, what, backend, change=None,
+                         reseed_at=None):
+    """Step each (graphed env, eager twin) of ``pairs`` ``steps`` times in
+    turn, from the same reset and random actions: the graphed env through
+    ``step`` (CUDA graph replays), the twin through ``step_eager``; every
+    output (state, obs, reward, done, info; frames) held equal bit for bit.
+    ``change = (k, fn)`` replaces the reward params by ``fn(params)`` before
+    step k; ``reseed_at`` reseeds both envs with ``reset(seed=1)`` before that
+    step.  Launch counts set to 0 just before and read just after: two
+    launches of ``backend``'s kernel per tick (replay and eager) and none of
+    the other; each graph holds ``frameskip`` launches."""
+    states, acts, params = [], [], []
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for graphed, eager in pairs:
+        g = graphed.reset(seed=0)
+        e = eager.reset(seed=0)
+        if int(mismatches(g, e)):
+            raise AssertionError(f"{what}: the two resets differ")
+        states.append([g[0], e[0]])
+        E, A = graphed.num_envs, graphed.cfg.act_dim
+        acts.append(torch.rand((steps, E, A), generator=gen, device=dev) * 2 - 1)
+        params.append(graphed.default_params())
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    for k in range(steps):
+        for i, (graphed, eager) in enumerate(pairs):
+            if k == reseed_at:
+                states[i] = [graphed.reset(seed=1, params=params[i])[0],
+                             eager.reset(seed=1, params=params[i])[0]]
+            if change is not None and k == change[0]:
+                params[i] = change[1](params[i])
+            g = graphed.step(states[i][0], acts[i][k], params[i])
+            e = eager.step_eager(states[i][1], acts[i][k], params[i])
+            bad += mismatches(g, e)
+            states[i] = [g[0], e[0]]
+    n_bad = int(bad)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    mine, other = (("step_fused", "solve_contacts") if backend == "fused"
+                   else ("solve_contacts", "step_fused"))
+    want = 2 * steps * sum(graphed.cfg.frameskip for graphed, _ in pairs)
+    held = [graphed._graph.launches for graphed, _ in pairs]
+    print(f"  {what}: {steps} steps of replay against the eager body, {n_bad} elements "
+          f"differ; launches {launches} (graphs hold {held}); {wall:.2f} s  [{card_line}]",
+          flush=True)
+    if n_bad:
+        raise AssertionError(f"{what}: replays differ from the eager body in {n_bad} elements")
+    if launches[mine] != want or launches[other] != 0 or any(
+            h != {mine: graphed.cfg.frameskip} for h, (graphed, _) in zip(held, pairs)):
+        raise AssertionError(f"{what}: launches {launches}, graphs {held}; expected {want} "
+                             f"of {mine}")
+    return n_bad
+
+
+def graphed_pair(env_id, backend, E=NUM_ENVS):
+    return make(env_id, num_envs=E, backend=backend), make(env_id, num_envs=E, backend=backend)
+
+
+ROLLOUT_FIELDS = ("normalizer", "vstate", "last_obs", "ep_return", "ep_len", "stat_return",
+                  "stat_count")
+
+
+def rollout_against_eager(cfg, card_line, what) -> dict:
+    """Two chained rollouts of a fresh learner at ``cfg``: ``PPO.rollout`` (one
+    CUDA graph replay each, the second from the first's outputs) against
+    ``PPO.rollout_eager`` from the same states, noise and env generator
+    state; the learner state, Transition and bootstrap value equal bit for
+    bit; launches counted just around the replays (n_steps x frameskip of the
+    learner's kernel per replay)."""
+    algo = PPO(cfg)
+    ts = algo.init_state()
+    gen_state = algo.env.generator.get_state()
+    noises = [torch.randn((cfg.n_steps, cfg.n_envs, algo.act_dim), generator=ts.generator,
+                          device=algo.device) for _ in range(2)]
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    got, gts = [], ts
+    for noise in noises:
+        gts, traj, value = algo.rollout(gts, noise)
+        # the Transition is the graph's buffer, which the next replay refills
+        got.append(([getattr(gts, f) for f in ROLLOUT_FIELDS], tree_map(torch.clone, traj),
+                    value))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    algo.env.generator.set_state(gen_state)
+    bad, ets = torch.zeros((), dtype=torch.int64, device=algo.device), ts
+    for noise, g in zip(noises, got):
+        ets, traj, value = algo.rollout_eager(ets, noise)
+        bad += mismatches(g, ([getattr(ets, f) for f in ROLLOUT_FIELDS], traj, value))
+    n_bad = int(bad)
+    n = 2 * cfg.n_steps * algo.env.cfg.frameskip
+    want = ({"step_fused": n, "solve_contacts": 0} if cfg.env_backend == "fused"
+            else {"step_fused": 0, "solve_contacts": n})
+    print(f"  {what}: 2 chained rollouts of {cfg.n_steps} steps x {cfg.n_envs} envs, CUDA "
+          f"graph replays against the eager body: {n_bad} elements differ; launches "
+          f"{launches}; {wall:.2f} s for the replays (the first captures)  [{card_line}]",
+          flush=True)
+    if n_bad:
+        raise AssertionError(f"{what}: rollout replays differ from the eager body")
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    return dict(launches=launches)
+
+
+def ppo_rate(cfg, eager: bool) -> tuple:
+    """``RATE_UPDATES`` updates of a fresh learner at ``cfg``, its rollout a
+    CUDA graph or (``eager``) the body the graph captures: (env-steps/s past
+    update 1 including the learner, each update's wall seconds)."""
+    algo = PPO(cfg)
+    if eager:
+        algo.rollout = algo.rollout_eager  # train_step's rollout, as the eager body
+    ts = algo.init_state()
+    walls = []
+    for _ in range(RATE_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _metrics = algo.train_step(ts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (RATE_UPDATES - 1) * cfg.n_steps * cfg.n_envs / sum(walls[1:]), walls
+
+
+def run_graphs(dev, card_line) -> dict:
+    """Phase 16 (constants ``GRAPH_*``): each CUDA graph of the main path
+    against its eager body, bit for bit, launches exact; then graph against
+    eager from this call: env-steps/s of the v0 main path, PPO env-steps/s
+    past update 1 at the v0 and pixel recipes, kernels per step and busy
+    share traced (``profile_step.profile_path``); peak device memory."""
+    print(f"  peak device memory of phases 1-15: "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated  [{card_line}]",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    v2 = "MultiRobotPuzzle-v2"
+    goal = (GRAPH_CHANGE_AT, lambda p: p.update_goal(5, 10, V2_EPSILON))
+    for env_id in VARIANTS:
+        for backend in ("fused", "pallas"):
+            kw = dict(reseed_at=GRAPH_CHANGE_AT) if (env_id, backend) == (ENV_ID, "fused") else {}
+            if env_id == v2:
+                kw = dict(change=goal)
+            what = f"{env_id} {backend}, {NUM_ENVS} envs {VI}/{PI}" + (
+                f", reset(seed=1) before step {GRAPH_CHANGE_AT}" if "reseed_at" in kw else "") + (
+                f", update_goal before step {GRAPH_CHANGE_AT}" if "change" in kw else "")
+            replay_against_eager(dev, card_line, [graphed_pair(env_id, backend)], MAIN_STEPS,
+                                 what, backend, **kw)
+    replay_against_eager(dev, card_line, [graphed_pair(HV0_ID, "fused", HV0_ENVS)],
+                         GRAPH_SHORT_STEPS, f"{HV0_ID} fused, {HV0_ENVS} envs", "fused")
+    replay_against_eager(dev, card_line, [graphed_pair(ENV_ID, "fused"), graphed_pair(v2, "fused")],
+                         GRAPH_SHORT_STEPS, "a v0 and a v2 graph stepped in turn (their world "
+                         "tables re-uploaded before each replay)", "fused")
+    iters = dict(velocity_iters=CNN_CONFIG["velocity_iters"],
+                 position_iters=CNN_CONFIG["position_iters"])
+    image = [DeviceImageVectorEnv(ENV_ID, num_envs=CNN_CONFIG["n_envs"], **iters)
+             for _ in range(2)]
+    replay_against_eager(dev, card_line, [tuple(image)], GRAPH_SHORT_STEPS,
+                         f"image env, {CNN_CONFIG['n_envs']} envs "
+                         f"{iters['velocity_iters']}/{iters['position_iters']} (frames)", "fused")
+    del image
+
+    flat_cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()),
+                                             **TRAIN_OVERRIDES)
+    pixel_cfg = PPOConfig(**CNN_CONFIG)
+    rollout_against_eager(flat_cfg, card_line, "PPO.rollout at the v0 recipe")
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rollout_against_eager(pixel_cfg, card_line, "PPO.rollout at the pixel recipe")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+    # graph against eager, in turns, this call
+    runs = {"graph": [], "eager": []}
+    for eager in (False, True, True, False):
+        r = run_main_path(dev, card_line, eager=eager)
+        runs["eager" if eager else "graph"].append(r["env_steps_per_s"])
+    ppo = {}
+    for name, cfg in (("v0 recipe", flat_cfg), ("pixel recipe", pixel_cfg)):
+        for eager in (False, True):
+            rate, walls = ppo_rate(cfg, eager)
+            ppo[(name, eager)] = rate
+            print(f"  PPO at the {name}, rollout {'eager' if eager else 'CUDA graph'}: "
+                  f"updates {', '.join(f'{w:.3f}' for w in walls)} s; {rate:,.0f} env-steps/s "
+                  f"past update 1  [{card_line}]", flush=True)
+    flat = profile_step.profile_path(PROFILE_STEPS, suffix=f"  [{card_line}]")
+    pixel = profile_step.profile_path(PROFILE_STEPS, pixels=True, suffix=f"  [{card_line}]")
+    print(f"  graph against eager, v0 fused 4096 envs {VI}/{PI}: env-steps/s "
+          f"{np.mean(runs['graph']):,.0f} against {np.mean(runs['eager']):,.0f} (each the mean "
+          f"of 2 windows, in turns); kernels run per step {flat['graph']['kernels_per_step']:.1f}"
+          f" against {flat['eager']['kernels_per_step']:.1f}, host launch calls per step "
+          f"{flat['graph']['host_launch_calls_per_step']:.1f} against "
+          f"{flat['eager']['host_launch_calls_per_step']:.1f}, busy share "
+          f"{flat['graph']['device_busy_share']:.3f} against "
+          f"{flat['eager']['device_busy_share']:.3f}; pixel step (256 envs, 60/20) kernels "
+          f"{pixel['graph']['kernels_per_step']:.1f} against "
+          f"{pixel['eager']['kernels_per_step']:.1f}, host launch calls "
+          f"{pixel['graph']['host_launch_calls_per_step']:.1f} against "
+          f"{pixel['eager']['host_launch_calls_per_step']:.1f}, busy share "
+          f"{pixel['graph']['device_busy_share']:.3f} against "
+          f"{pixel['eager']['device_busy_share']:.3f}; PPO env-steps/s past update 1 "
+          + ", ".join(f"{name} {ppo[(name, False)]:,.0f} against {ppo[(name, True)]:,.0f}"
+                      for name in ("v0 recipe", "pixel recipe"))
+          + f"  [{card_line}]", flush=True)
+    print(f"  peak device memory of phase 16: "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated  [{card_line}]",
+          flush=True)
+    return dict(main_graph=runs["graph"], main_eager=runs["eager"], flat=flat, pixel=pixel,
+                ppo=ppo)
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1970,6 +2231,12 @@ def main() -> int:
     print(f"  world.step on {HV0_ENVS} {HV0_ID} spawns {VI}/{PI}: {hv0_plain_ms:.1f} ms per "
           f"tick  [{card_line}]", flush=True)
     print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    print("== 16. the env step, the image env step and the rollout as CUDA graphs against "
+          "their eager bodies; graph against eager", flush=True)
+    t_phase = time.perf_counter()
+    run_graphs(dev, card_line)
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}

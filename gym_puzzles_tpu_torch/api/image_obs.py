@@ -12,6 +12,10 @@ tick kernel, ``frameskip`` launches per step):
 * :class:`DeviceImageVectorEnv` -- thousands of envs render their frames on
   the device (``render/device.py``) after every step and carry their frame
   stacks there, so a CNN policy trains on pixels with no host round trip.
+  On a CUDA device its step -- ``frameskip`` ticks, the render of the
+  post-autoreset state and the frame-stack shift -- replays one CUDA graph,
+  the counterpart of the JAX package's jitted image step
+  (``image_obs.py:135,143``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from gym_puzzles_tpu_torch.api.vector import VectorEnv
 from gym_puzzles_tpu_torch.engine.types import Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
+from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
 
 
 class ImageObsEnv:
@@ -126,6 +131,7 @@ class DeviceImageVectorEnv:
         self.render = make_device_renderer(logic, downsample=downsample, mode=mode)
         self.frame_shape = (self.render.height, self.render.width, 3)
         self.obs_shape = (self.render.height * obs_depth, self.render.width, 3)
+        self._graph = None  # GraphedStep of step_eager, made at the first CUDA step
 
     @property
     def generator(self) -> torch.Generator:
@@ -139,6 +145,17 @@ class DeviceImageVectorEnv:
 
     def default_params(self):
         return self._env.default_params()
+
+    @property
+    def graph_pool(self):
+        """The memory pool of this env's CUDA graphs (the inner env's)."""
+        return self._env.graph_pool
+
+    def close(self):
+        """Release the env's CUDA graph (a later step captures anew)."""
+        if self._graph is not None:
+            self._graph.close()
+            self._graph = None
 
     def stack_obs(self, frames):
         """[E, depth, h, w, 3] frames -> [E, depth * h, w, 3] obs."""
@@ -160,14 +177,33 @@ class DeviceImageVectorEnv:
         info).  The frame is rendered from the state after autoreset; where
         ``done``, the stack starts afresh (zero-padded), elsewhere it shifts
         by one frame.  ``timer(name)`` (a context manager, e.g. the learner's
-        ``PhaseTimer``) times the physics as ``env`` and the frames as
-        ``render``."""
+        ``PhaseTimer``) times the whole step -- physics and frames, one graph
+        replay on the card -- as ``env``; ``profile_step.py --pixels`` splits
+        the eager step into physics and render.
+
+        On a CUDA device this replays the env's CUDA graph of
+        :meth:`step_eager` (captured at the first step); on the CPU it is
+        :meth:`step_eager`.  What a step returns is its own, as for
+        ``VectorEnv.step``."""
         timer = timer or (lambda _name: contextlib.nullcontext())
+        params = self.default_params() if params is None else params
         with timer("env"):
-            vec, _obs, reward, done, info = self._env.step(istate.vec, action, params)
-        with timer("render"):
-            frame = self.render(vec)
-            older = torch.where(done[:, None, None, None, None], 0, istate.frames[:, 1:])
-            frames = torch.cat([older, frame[:, None]], dim=1)
+            act = torch.as_tensor(action, dtype=torch.float32, device=self.device)
+            if self.device.type != "cuda":
+                return self.step_eager(istate, act, params)
+            if self._graph is None:
+                self._graph = GraphedStep(weak_call(self.step_eager), self.device,
+                                          (self.generator,), self.graph_pool)
+            return self._graph(istate, act, params)
+
+    def step_eager(self, istate: ImageVectorState, action, params=None):
+        """:meth:`step` as eager PyTorch ops and kernel launches: the physics
+        through ``VectorEnv.step_eager`` (no graph within the graph), then the
+        render and the frame stack.  What the CUDA graph captures, what the
+        CPU runs, and what a replay is held against."""
+        vec, _obs, reward, done, info = self._env.step_eager(istate.vec, action, params)
+        frame = self.render(vec)
+        older = torch.where(done[:, None, None, None, None], 0, istate.frames[:, 1:])
+        frames = torch.cat([older, frame[:, None]], dim=1)
         return (ImageVectorState(vec=vec, frames=frames), self.stack_obs(frames),
                 reward, done, info)

@@ -25,6 +25,17 @@ The engine tick behind a step is selectable too:
   launch of the CUDA contact-solve kernel (``engine/solver_cuda.py``).
 
 On the CPU both run the plain PyTorch engine.
+
+On a CUDA device :meth:`VectorEnv.step` replays a CUDA graph, the
+counterpart of the JAX package's jitted step (``vector.py:117``): the first
+step captures :meth:`VectorEnv.step_eager` (``utils/cuda_graph.py``), every
+step after replays it.  The state, obs, reward, done and info a step returns
+are the step's own (a later step changes none of them); a state passed back
+as it was returned is not copied again.  Reward parameters reach the graph
+through a device buffer, so a changed ``RewardParams`` needs no new capture.
+Autoreset spawns draw from :attr:`VectorEnv.generator`, registered with the
+graph: a replay draws what the eager step would, and ``reset(seed=)``
+reseeds them.  :meth:`reset` stays eager.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
 from gym_puzzles_tpu_torch.envs.config import RewardParams
+from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,6 +87,19 @@ class VectorEnv:
         self.reset_mode = reset_mode
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
+        self._graph = None  # GraphedStep of step_eager, made at the first CUDA step
+
+    @functools.cached_property
+    def graph_pool(self):
+        """The memory pool of this env's CUDA graphs (and of graphs built
+        around it, such as the learner's rollout); it goes with the env."""
+        return torch.cuda.graph_pool_handle()
+
+    def close(self):
+        """Release the env's CUDA graph (a later step captures anew)."""
+        if self._graph is not None:
+            self._graph.close()
+            self._graph = None
 
     def default_params(self) -> RewardParams:
         return self.logic.default_params()
@@ -102,7 +127,24 @@ class VectorEnv:
     def step(self, state: cm.EnvState, action, params: RewardParams | None = None):
         """action: [E, act_dim].  Returns (state, obs [E, obs_dim],
         reward [E], done [E], info dict of [E] tensors).  With auto_reset,
-        finished envs come back freshly spawned, with their new obs."""
+        finished envs come back freshly spawned, with their new obs.
+
+        On a CUDA device this replays the env's CUDA graph of
+        :meth:`step_eager` (captured at the first step; a capture that fails
+        raises); on the CPU it is :meth:`step_eager`."""
+        params = self.default_params() if params is None else params
+        act = torch.as_tensor(action, dtype=torch.float32, device=self.device)
+        if self.device.type != "cuda":
+            return self.step_eager(state, act, params)
+        if self._graph is None:
+            self._graph = GraphedStep(weak_call(self.step_eager), self.device,
+                                      (self.generator,), self.graph_pool)
+        return self._graph(state, act, params)
+
+    def step_eager(self, state: cm.EnvState, action, params: RewardParams | None = None):
+        """:meth:`step` as eager PyTorch ops and kernel launches: what the CUDA
+        graph captures, what the CPU runs, and what a replay is held against.
+        ``params`` may hold Python floats or 0-d float32 tensors."""
         params = self.default_params() if params is None else params
         act = torch.as_tensor(action, dtype=torch.float32, device=self.device).T
         state, obs, reward, done, info = self._step(state, act, params)

@@ -12,13 +12,20 @@ binding, the world table and the launch counts.
 * The static world (:class:`ShapeTable`) goes into ``__constant__`` memory
   as ``struct World`` of ``csrc/tick.cuh``.  Each kernel's library has its
   own copy of that symbol and its own ``gpt_set_world``; a table is copied
-  again only when it changes.
+  again only when it changes.  The copy is from pageable host memory, which
+  a CUDA graph cannot capture: a graph's warm-up uploads its table, and
+  before each replay ``utils/cuda_graph.py`` calls :meth:`CudaKernel.set_world`
+  with the graph's table, which copies it again only if another table was
+  uploaded since (two envs of different worlds replayed in turn each run on
+  their own table).  That keeps the kernels' device code as it is.
 * Size classes: each kernel is instantiated for a few ceilings of the body
   and pair counts (``SIZE_CLASSES``, the ``GPT_SMALL_*`` / ``GPT_LARGE_*`` of
   ``csrc/tick.cuh``); :func:`size_class` picks the smallest a table fits,
   and the launch passes its index.
 * Each :class:`CudaKernel` counts its launches; :func:`launch_count` reads a
-  count by the kernel's name.
+  count by the kernel's name.  A launch captured into a CUDA graph counts
+  once per replay: the graph records how many launches of each kernel it
+  holds, takes its capture out of the counts, and adds them at each replay.
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ import torch
 
 from gym_puzzles_tpu_torch.engine.narrowphase import TOTAL_RADIUS
 from gym_puzzles_tpu_torch.engine.shapes import LINEAR_SLOP, POLYGON_RADIUS
-from gym_puzzles_tpu_torch.engine.types import Replaceable, ShapeTable
+from gym_puzzles_tpu_torch.engine.types import Replaceable, ShapeTable, device_const
 
 BAUMGARTE = 0.2
 MAX_LINEAR_CORRECTION = 0.2
@@ -74,11 +74,11 @@ class VelocityConstraints(Replaceable):
 
 def _col(x, device):
     """numpy [N] constant -> tensor [N, 1] broadcasting over the env axis."""
-    return torch.as_tensor(np.asarray(x), device=device)[:, None]
+    return device_const(x, device)[:, None]
 
 
 def _idx(x, device):
-    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+    return device_const(np.asarray(x, dtype=np.int64), device)
 
 
 def dd_links(table: ShapeTable):
@@ -186,10 +186,10 @@ def init_velocity_constraints(table: ShapeTable, man, pos, angle, vel, omega,
     rbx = wx - pos[ib, 0][:, None]
     rby = wy - pos[ib, 1][:, None]
 
-    m_sum = torch.as_tensor(table.inv_mass[table.pair_body_a]
-                            + table.inv_mass[table.pair_body_b], device=dev)[:, None, None]
-    i_a = torch.as_tensor(table.inv_inertia[table.pair_body_a], device=dev)[:, None, None]
-    i_b = torch.as_tensor(table.inv_inertia[table.pair_body_b], device=dev)[:, None, None]
+    m_sum = device_const(table.inv_mass[table.pair_body_a]
+                         + table.inv_mass[table.pair_body_b], dev)[:, None, None]
+    i_a = device_const(table.inv_inertia[table.pair_body_a], dev)[:, None, None]
+    i_b = device_const(table.inv_inertia[table.pair_body_b], dev)[:, None, None]
 
     nx2, ny2 = nx[:, None], ny[:, None]
     rn_a = rax * ny2 - ray * nx2  # [P, 2, E]
@@ -209,7 +209,7 @@ def init_velocity_constraints(table: ShapeTable, man, pos, angle, vel, omega,
     dvx = vbx - omb * rby - vax + oma * ray
     dvy = vby + omb * rbx - vay - oma * rax
     v_rel = dvx * nx2 + dvy * ny2
-    neg_rest = torch.as_tensor(-table.pair_restitution, device=dev)[:, None, None]
+    neg_rest = device_const(-table.pair_restitution, dev)[:, None, None]
     bias = torch.where(v_rel < -VELOCITY_THRESHOLD, neg_rest * v_rel, 0.0)
 
     # 2-point block matrix + conditioning degrade.

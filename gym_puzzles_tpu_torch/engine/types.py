@@ -223,6 +223,23 @@ class Replaceable:
         return dataclasses.replace(self, **changes)
 
 
+_DEVICE_CONSTS: dict = {}
+
+
+def device_const(x, device) -> torch.Tensor:
+    """``torch.as_tensor(np.asarray(x), device=device)``, made once per
+    content and device and then shared: the step path's host constants (the
+    static table's columns, layout masks, spawn bounds) are copied to the card
+    before a CUDA graph captures the step, which can hold no host-to-device
+    copy.  Callers must not write to the tensor."""
+    a = np.asarray(x)
+    key = (torch.device(device), a.dtype.str, a.shape, a.tobytes())
+    t = _DEVICE_CONSTS.get(key)
+    if t is None:
+        t = _DEVICE_CONSTS[key] = torch.tensor(a, device=device)
+    return t
+
+
 @dataclasses.dataclass
 class Bodies(Replaceable):
     """Per-env rigid body state.  ``pos`` is the world COM (sweep center).

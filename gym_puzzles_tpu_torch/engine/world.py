@@ -35,6 +35,7 @@ from gym_puzzles_tpu_torch.engine import narrowphase as nph
 from gym_puzzles_tpu_torch.engine import solver as slv
 from gym_puzzles_tpu_torch.engine import solver_cuda
 from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, Replaceable, ShapeTable
+from gym_puzzles_tpu_torch.engine.types import device_const as _const
 
 
 @dataclasses.dataclass
@@ -44,10 +45,6 @@ class StepInfo(Replaceable):
     touching: torch.Tensor  # manifold non-empty at tick start
     begin: torch.Tensor  # touch began this tick
     end: torch.Tensor  # touch ended this tick
-
-
-def _const(x, device):
-    return torch.as_tensor(np.asarray(x), device=device)
 
 
 def init_bodies(table: ShapeTable, origin_pos, angle) -> Bodies:

@@ -14,7 +14,7 @@ import torch
 
 from gym_puzzles_tpu_torch.engine import step_cuda
 from gym_puzzles_tpu_torch.engine import world as eng
-from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, Replaceable
+from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, Replaceable, device_const
 from gym_puzzles_tpu_torch.envs.layout import WorldLayout
 
 
@@ -64,12 +64,12 @@ def update_contact_flags(layout: WorldLayout, info: eng.StepInfo, goal_contact, 
     When both a begin and an end hit the same flag in one tick, *end wins*
     (the older contact's end event lands last in Box2D's contact list)."""
     dev = goal_contact.device
-    ab = torch.as_tensor(layout.agent_block_pairs, device=dev)[..., None]  # [A, P, 1]
+    ab = device_const(layout.agent_block_pairs, dev)[..., None]  # [A, P, 1]
     begin = (ab & info.begin[None]).any(dim=1)
     end = (ab & info.end[None]).any(dim=1)
     goal_contact = torch.where(end, False, torch.where(begin, True, goal_contact))
 
-    aw = torch.as_tensor(layout.agent_wall_pairs, device=dev)[..., None]
+    aw = device_const(layout.agent_wall_pairs, dev)[..., None]
     w_begin = (aw & info.begin[None]).any(dim=1).any(dim=0)
     w_end = (aw & info.end[None]).any(dim=1).any(dim=0)
     wall_contact = torch.where(w_end, False, torch.where(w_begin, True, wall_contact))
@@ -121,8 +121,8 @@ def block_world_vertices(layout: WorldLayout, bodies: Bodies):
     """World positions of the dedup'd block vertices [8, 2, E]."""
     origin, q = eng.body_origins(layout.table, bodies)
     b = layout.block_slot
-    verts = torch.as_tensor(np.asarray(layout.block_verts, np.float32),
-                            device=origin.device)[..., None]  # [8, 2, 1]
+    verts = device_const(np.asarray(layout.block_verts, np.float32),
+                         origin.device)[..., None]  # [8, 2, 1]
     c, s = q[b, 0], q[b, 1]
     vx, vy = verts[:, 0], verts[:, 1]
     return torch.stack([(c * vx - s * vy) + origin[b, 0],

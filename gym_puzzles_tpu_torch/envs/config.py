@@ -10,7 +10,10 @@ Mutable-through-methods state of the reference (``set_reward_params``,
 Python floats holding float32-rounded values, so they multiply tensors
 exactly as the JAX package's numpy float32 leaves do, and the curriculum
 methods do their arithmetic in ``np.float32`` so that their results equal
-the JAX package's bit for bit.
+the JAX package's bit for bit.  The env step also takes a ``RewardParams``
+whose fields are 0-d float32 tensors (a CUDA graph's params buffer,
+``utils/cuda_graph.py``, as the JAX package traces them as arrays) and
+computes the same bits with it.
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch.engine import world as eng
+from gym_puzzles_tpu_torch.engine.types import device_const
 from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs import config as C
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
@@ -44,10 +45,10 @@ class V0Env(PuzzleEnvLogic):
         bx = cm.uniform(gen, b, w - b, (E,))
         by = cm.uniform(gen, b, h - b, (E,))
         bang = cm.uniform(gen, 0.0, 2.0 * np.pi, (E,))
-        hi = torch.tensor([w - b, h - b], dtype=torch.float32, device=dev)[:, None]
+        hi = device_const(np.array([w - b, h - b], np.float32), dev)[:, None]
         axy = cm.uniform(gen, b, hi, (A, 2, E))
 
-        walls = torch.as_tensor(np.asarray(self.wall_positions, np.float32), device=dev)
+        walls = device_const(np.asarray(self.wall_positions, np.float32), dev)
         origin = torch.cat([
             walls[..., None].expand(4, 2, E),
             torch.stack([bx, by])[None],
@@ -56,7 +57,7 @@ class V0Env(PuzzleEnvLogic):
         angles = torch.cat([torch.zeros((4, E), device=dev), bang[None],
                             torch.zeros((A, E), device=dev)])
         bodies = eng.init_bodies(lay.table, origin, angles)
-        goal = torch.as_tensor(self.goal_px, device=dev)[:, None].expand(3, E).clone()
+        goal = device_const(self.goal_px, dev)[:, None].expand(3, E).clone()
         return bodies, goal
 
     # -- distances in pixel units (00.py:277-291) ---------------------------

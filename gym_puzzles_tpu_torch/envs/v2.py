@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch.engine import world as eng
+from gym_puzzles_tpu_torch.engine.types import device_const
 from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs import config as C
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
@@ -46,7 +47,7 @@ class V2Env(PuzzleEnvLogic):
         b = C.V2_BORDER
 
         def pair(x, y):
-            return torch.tensor([x, y], dtype=torch.float32, device=dev)[:, None]
+            return device_const(np.array([x, y], np.float32), dev)[:, None]
 
         bang = cm.uniform(gen, 0.0, 2.0 * np.pi, (E,))
         if simple:
@@ -64,7 +65,7 @@ class V2Env(PuzzleEnvLogic):
         else:
             a_ang = cm.uniform(gen, 0.0, 2.0 * np.pi, (A, E))  # 02.py:357
 
-        walls = torch.as_tensor(np.asarray(self.wall_positions, np.float32), device=dev)
+        walls = device_const(np.asarray(self.wall_positions, np.float32), dev)
         origin = torch.cat([walls[..., None].expand(4, 2, E), bxy[None], axy])
         angles = torch.cat([torch.zeros((4, E), device=dev), bang[None], a_ang])
         bodies = eng.init_bodies(lay.table, origin, angles)
@@ -125,9 +126,8 @@ class V2Env(PuzzleEnvLogic):
         i_origin = table.inertia_com[slots] + table.mass[slots] * (
             table.local_center[slots] ** 2
         ).sum(-1)
-        pump = torch.as_tensor(np.asarray(0.1 * i_origin, np.float32), device=dev)[:, None]
-        inv_i = torch.as_tensor(np.asarray(table.inv_inertia[slots], np.float32),
-                                device=dev)[:, None]
+        pump = device_const(np.asarray(0.1 * i_origin, np.float32), dev)[:, None]
+        inv_i = device_const(np.asarray(table.inv_inertia[slots], np.float32), dev)[:, None]
         w_a = w_a + inv_i * (pump * w_a)
 
         # torque: magnitude from |turn|, sign INVERTED, zeroed if |vel|<0.1
@@ -184,7 +184,9 @@ class V2Env(PuzzleEnvLogic):
         blk_obs = torch.stack([x - fx, y - fy, a_diff, cm.distance(b_xy, state.goal_pos[:2])])
 
         verts = cm.block_world_vertices(lay, bodies) * RATIO
-        eps = torch.full((1, E), params.scaled_epsilon, dtype=torch.float32, device=bc.device)
+        # ones * eps, not torch.full: ``scaled_epsilon`` may be a 0-d tensor
+        # (the CUDA graph's params buffer), which torch.full would read on the host
+        eps = torch.ones((1, E), dtype=torch.float32, device=bc.device) * params.scaled_epsilon
         obs = torch.cat([agent_obs, blk_obs, verts.reshape(-1, E), eps])
 
         # shaping (02.py:537-546): no /4 factors, no contact bonus

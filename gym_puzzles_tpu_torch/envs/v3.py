@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from gym_puzzles_tpu_torch.engine import world as eng
+from gym_puzzles_tpu_torch.engine.types import device_const
 from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs import config as C
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
@@ -62,10 +63,10 @@ class V3Env(PuzzleEnvLogic):
         bx = cm.uniform(gen, w / 3.0 + 2.0 * b, w * 2.0 / 3.0 - 2.0 * b, (E,))
         by = cm.uniform(gen, 3.0 * b, h - 3.0 * b, (E,))
         bang = cm.uniform(gen, 0.0, 2.0 * np.pi, (E,))
-        hi = torch.tensor([w / 3.0 - 2.0 * b, h - b], dtype=torch.float32, device=dev)[:, None]
+        hi = device_const(np.array([w / 3.0 - 2.0 * b, h - b], np.float32), dev)[:, None]
         axy = cm.uniform(gen, b, hi, (A, 2, E))
 
-        walls = torch.as_tensor(np.asarray(self.wall_positions, np.float32), device=dev)
+        walls = device_const(np.asarray(self.wall_positions, np.float32), dev)
         origin = torch.cat([
             walls[..., None].expand(4, 2, E),
             torch.stack([bx, by])[None],
@@ -74,7 +75,7 @@ class V3Env(PuzzleEnvLogic):
         angles = torch.cat([torch.zeros((4, E), device=dev), bang[None],
                             torch.zeros((A, E), device=dev)])
         bodies = eng.init_bodies(lay.table, origin, angles)
-        goal = torch.as_tensor(self.goal_norm, device=dev)[:, None].expand(3, E).clone()
+        goal = device_const(self.goal_norm, dev)[:, None].expand(3, E).clone()
         return bodies, goal
 
     # -- distances in normalized units (core.py:297-350) --------------------

@@ -1,18 +1,24 @@
-"""Where the port's main path spends the card's time.
+"""Where the port's main path spends the card's time, its CUDA graph beside
+its eager body.
 
     python -m gym_puzzles_tpu_torch.profile_step [steps] [--env ID] [--backend fused|pallas]
         [--pixels]
 
 Runs ``make(ID, num_envs=4096, backend=...)`` on the card (default
 MultiRobotPuzzle-v0, the fused backend; reset, 10 warm-up steps of random
-actions), then traces ``steps`` more steps with
-``torch.profiler`` and prints: the wall time per step (the tracer slows the
-host), the device's busy share of that time (the sum of device-kernel times
-over the wall time), the device kernels launched per step, and the top
-kernels by device time.  With ``--pixels`` the env is the image env of the
-pixel recipe (``DeviceImageVectorEnv``, 256 envs, 60/20, frameskip 4), and
-``steps`` renders of one state are traced alone as well (``render``).  The
-last line is the same as one JSON object.  Needs a CUDA device.
+actions through ``env.step``, the first of which captures its CUDA graph),
+then traces ``steps`` more steps with ``torch.profiler`` twice: through
+``env.step`` (graph replays) and through ``env.step_eager`` (the body the
+graph captures).  For each it prints the wall time per step (the tracer
+slows the host), the device's busy share of that time (the sum of
+device-kernel times over the wall time), the device kernels run per step,
+the host's launch calls per step (kernel launches, graph launches, copies
+and fills) and graph launches per step, and the top kernels by device time.
+With ``--pixels`` the env is the image env of the pixel recipe
+(``DeviceImageVectorEnv``, 256 envs, 60/20, frameskip 4), and the eager
+physics (``frameskip`` ticks and the env logic) and the render of one state
+are traced alone as well: a replay cannot be split.  The last line is the
+same as one JSON object.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,11 +38,15 @@ ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
 # the pixel recipe's env (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl)
 PIXEL_ENVS, PIXEL_ITERS = 256, (60, 20)
+# the host's runtime calls that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def trace(fn, steps: int) -> dict:
     """``fn(k)`` for k < ``steps`` under ``torch.profiler``: wall and device
-    ms per step, busy share, device kernels per step, top kernels."""
+    ms per step, busy share, device kernels, host launch calls and graph
+    launches per step, top kernels."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in range(steps):
@@ -44,10 +54,13 @@ def trace(fn, steps: int) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
 
+    events = prof.key_averages()
     # device-side events only: the CPU ops that launched them carry the same
     # time as their own "self device" time and would count it twice
-    kernels = [e for e in prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    calls = {e.key: e.count for e in events
+             if e.device_type == DeviceType.CPU and e.key in LAUNCH_CALLS}
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -56,19 +69,25 @@ def trace(fn, steps: int) -> dict:
     return dict(wall_ms_per_step=1e3 * wall_s / steps,
                 device_ms_per_step=device_us / 1e3 / steps,
                 device_busy_share=(device_us / 1e6) / wall_s,
-                kernels_per_step=launches / steps, top=top)
+                kernels_per_step=launches / steps,
+                host_launch_calls_per_step=sum(calls.values()) / steps,
+                graph_launches_per_step=calls.get("cudaGraphLaunch", 0) / steps,
+                top=top)
 
 
-def report(name: str, t: dict):
+def report(name: str, t: dict, suffix: str = ""):
     print(f"{name}: {t['wall_ms_per_step']:.3f} ms/step wall, {t['device_ms_per_step']:.3f} "
           f"ms/step on the device (busy share {t['device_busy_share']:.3f}), "
-          f"{t['kernels_per_step']:.1f} kernels/step")
+          f"{t['kernels_per_step']:.1f} kernels/step run, "
+          f"{t['host_launch_calls_per_step']:.1f} host launch calls/step "
+          f"({t['graph_launches_per_step']:.1f} graph launches){suffix}", flush=True)
     for k in t["top"]:
-        print(f"  {k['device_ms']:10.3f} ms  x{k['count']:<6d} {k['name']}")
+        print(f"  {k['device_ms']:10.3f} ms  x{k['count']:<6d} {k['name']}", flush=True)
 
 
-def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
-         pixels: bool = False) -> dict:
+def profile_path(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
+                 pixels: bool = False, suffix: str = "") -> dict:
+    """The traces of the module docstring, printed; returns them."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     if pixels:
@@ -84,17 +103,31 @@ def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
         state, *_ = env.step(state, acts[steps + k])
     torch.cuda.synchronize()
 
-    def step(k):
-        nonlocal state
-        state, *_ = env.step(state, acts[k])
+    def run(step):
+        def fn(k):
+            nonlocal state
+            state, *_ = step(state, acts[k])
+        return fn
 
     out = dict(device=torch.cuda.get_device_name(0), env_id=env_id, backend=backend,
-               pixels=pixels, num_envs=E, steps=steps, **trace(step, steps))
-    report(f"{env_id} backend={backend}{' pixels' if pixels else ''}: {steps} traced steps x "
-           f"{E} envs on {out['device']}", out)
+               pixels=pixels, num_envs=E, steps=steps, graph=trace(run(env.step), steps),
+               eager=trace(run(env.step_eager), steps))
+    name = f"{env_id} backend={backend}{' pixels' if pixels else ''}: {steps} traced steps x {E} envs"
+    report(f"{name}, CUDA graph replays", out["graph"], suffix)
+    report(f"{name}, eager body", out["eager"], suffix)
     if pixels:
+        vec = env._env  # the physics of the image step, eager
+        out["physics"] = trace(lambda k: vec.step_eager(state.vec, acts[k]), steps)
         out["render"] = trace(lambda _k: env.render(state.vec), steps)
-        report(f"  render alone, {E} envs", out["render"])
+        report(f"  physics alone (eager, {env.cfg.frameskip} ticks), {E} envs", out["physics"],
+               suffix)
+        report(f"  render alone, {E} envs", out["render"], suffix)
+    return out
+
+
+def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
+         pixels: bool = False) -> dict:
+    out = profile_path(steps, env_id, backend, pixels)
     print(json.dumps(out))
     return out
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gym_puzzles_tpu_torch.engine.types import device_const
 from gym_puzzles_tpu_torch.envs import config as C
 from gym_puzzles_tpu_torch.render.palette import BLUE, GREY, LT_GREY, WHITE
 
@@ -88,9 +89,9 @@ def make_device_renderer(logic, downsample: int = 4, mode: str = "human_vision")
         ang = env_state.bodies.angle  # [B, E]
         dev = ang.device
         E = ang.shape[-1]
-        gx = torch.as_tensor(gx_np, device=dev).view(1, 1, w)
-        gy = torch.as_tensor(gy_np, device=dev).view(1, h, 1)
-        colors = {c: torch.tensor(c, dtype=torch.uint8, device=dev)
+        gx = device_const(gx_np, dev).view(1, 1, w)
+        gy = device_const(gy_np, dev).view(1, h, 1)
+        colors = {c: device_const(np.array(c, np.uint8), dev)
                   for c in (BLUE, GREY, LT_GREY, WHITE)}
 
         def paint(img, mask, color):
@@ -131,7 +132,7 @@ def make_device_renderer(logic, downsample: int = 4, mode: str = "human_vision")
             return m
 
         cth, sth = torch.cos(ang), torch.sin(ang)
-        lc = torch.as_tensor(local_center, device=dev)[..., None]  # [B, 2, 1]
+        lc = device_const(local_center, dev)[..., None]  # [B, 2, 1]
         org_x = pos[:, 0] - (cth * lc[:, 0] - sth * lc[:, 1])
         org_y = pos[:, 1] - (sth * lc[:, 0] + cth * lc[:, 1])
 
@@ -156,7 +157,7 @@ def make_device_renderer(logic, downsample: int = 4, mode: str = "human_vision")
         if mode != "agent_vision":
             for f, verts in enumerate(fix_verts):
                 b = fix_body[f]
-                v = torch.as_tensor(verts, device=dev)[..., None]  # [N, 2, 1]
+                v = device_const(verts, dev)[..., None]  # [N, 2, 1]
                 wx = org_x[b] + cth[b] * v[:, 0] - sth[b] * v[:, 1]
                 wy = org_y[b] + sth[b] * v[:, 0] + cth[b] * v[:, 1]
                 px, py = wx * ppm, H - wy * ppm
@@ -175,7 +176,7 @@ def make_device_renderer(logic, downsample: int = 4, mode: str = "human_vision")
         img = paint(img, disc_mask(pos[b, 0] * ppm, pos[b, 1] * ppm, center_r), WHITE)
 
         # block vertex dots
-        v = torch.as_tensor(block_verts, device=dev)[..., None]  # [8, 2, 1]
+        v = device_const(block_verts, dev)[..., None]  # [8, 2, 1]
         wx = org_x[b] + cth[b] * v[:, 0] - sth[b] * v[:, 1]
         wy = org_y[b] + sth[b] * v[:, 0] + cth[b] * v[:, 1]
         for k in range(block_verts.shape[0]):

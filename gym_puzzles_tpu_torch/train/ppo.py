@@ -8,8 +8,10 @@ One :meth:`PPO.train_step` is one update, in three parts that can be called
 alone:
 
 1. :meth:`PPO.rollout` steps the vectorized env ``n_steps`` times on the
-   device (``VectorEnv.step``; with ``env_backend='fused'``, the default,
-   each step is one launch of the fused tick kernel);
+   device (``step_eager`` of the env; with ``env_backend='fused'``, the
+   default, each engine tick is one launch of the fused tick kernel), all
+   ``n_steps`` steps with the policy between them replayed as one CUDA graph
+   on the card;
 2. :func:`compute_gae` computes GAE(gamma, lambda) advantages;
 3. :meth:`PPO.update` runs ``n_epochs`` x minibatch SGD with the clipped
    surrogate, entropy bonus, value loss, global-norm gradient clipping, an
@@ -53,6 +55,7 @@ from gym_puzzles_tpu_torch.envs.config import RewardParams, _f32
 from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
                                                   gaussian_entropy, gaussian_log_prob)
+from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 
@@ -197,8 +200,9 @@ class Transition:
 
 
 class PhaseTimer:
-    """Wall seconds by part of an update (``env``, ``render`` on the image
-    env, ``policy``, ``gae``, ``update``), for measurement only: each part
+    """Wall seconds by part of an update (``rollout``: the ``n_steps`` steps,
+    one graph replay on the card; ``policy``: the bootstrap value; ``gae``;
+    ``update``), for measurement only: each part
     starts and ends with a device synchronise, which the untimed path never
     does."""
 
@@ -329,6 +333,7 @@ class PPO:
         # the architecture; a TrainState's params are applied through it
         self.net = self.build_net(torch.Generator().manual_seed(cfg.seed)).to(self.device)
         self.default_env_params = env.default_params()
+        self._rollout_graph = None  # (GraphedStep, its Transition) on a CUDA device
         self.env_params = (
             self.default_env_params.set_reward_params(**dict(cfg.reward_params))
             if cfg.reward_params else self.default_env_params
@@ -393,56 +398,46 @@ class PPO:
         bootstrap value is taken on the last obs normalized with the
         end-of-rollout statistics, without updating them.  With a ``mesh``
         those statistics and the episode counters are synced first
-        (:func:`sync_statistics`)."""
+        (:func:`sync_statistics`).
+
+        On a CUDA device the ``n_steps`` steps (:meth:`rollout_steps`) replay
+        one CUDA graph, the counterpart of the JAX package's ``lax.scan`` of
+        its rollout step (captured at the first rollout; spawns draw from the
+        env's generator, registered with it).  The Transition it returns is
+        then the graph's own buffer, overwritten by the learner's next
+        rollout: clone it to keep it.  On the CPU this is
+        :meth:`rollout_eager`.  ``timer`` times the steps as ``rollout``, the
+        bootstrap value as ``policy``."""
+        return self._rollout(ts, noise, timer, mesh, graphed=self.device.type == "cuda")
+
+    @torch.no_grad()
+    def rollout_eager(self, ts: TrainState, noise=None, timer=_untimed, mesh=None):
+        """:meth:`rollout` with its steps run as eager PyTorch ops and kernel
+        launches, into a Transition of its own: what the CPU runs and what
+        the card's graph replay is held against."""
+        return self._rollout(ts, noise, timer, mesh, graphed=False)
+
+    def _rollout(self, ts: TrainState, noise, timer, mesh, graphed: bool):
         cfg, dev = self.cfg, self.device
         T, E = cfg.n_steps, cfg.n_envs
         if noise is None:
             noise = torch.randn((T, E, self.act_dim), generator=ts.generator, device=dev)
-        # frames stay uint8: 4x smaller than float32
-        obs_shape, obs_dtype = (((self.obs_dim,), torch.float32) if self.obs_shape is None
-                                else (self.obs_shape, torch.uint8))
-        traj = Transition(
-            obs=torch.empty((T, E) + tuple(obs_shape), dtype=obs_dtype, device=dev),
-            action=torch.empty((T, E, self.act_dim), device=dev),
-            log_prob=torch.empty((T, E), device=dev),
-            value=torch.empty((T, E), device=dev),
-            reward=torch.empty((T, E), device=dev),
-            done=torch.empty((T, E), dtype=torch.bool, device=dev),
-            status=torch.empty((T, E), dtype=torch.int32, device=dev),
-        )
-        norm, vstate, obs = ts.normalizer, ts.vstate, ts.last_obs
-        ep_ret, ep_len = ts.ep_return, ts.ep_len
-        stat_r, stat_c = ts.stat_return, ts.stat_count
-        for t in range(T):
-            with timer("policy"):
-                if self.use_obs_norm:
-                    norm, n_obs = nrm.normalize_obs(norm, obs, update=True)
-                else:
-                    n_obs = obs
-                mean, log_std, value = self.apply(ts.params, n_obs)
-                action = mean + torch.exp(log_std) * noise[t]
-                traj.obs[t], traj.action[t], traj.value[t] = n_obs, action, value
-                traj.log_prob[t] = gaussian_log_prob(mean, log_std, action)
-            clipped = torch.clamp(action, -1.0, 1.0)
-            if self.obs_shape is None:
-                with timer("env"):
-                    vstate, obs, reward, done, info = self.env.step(vstate, clipped,
-                                                                    ts.env_params)
-            else:  # the image env times its physics ("env") and "render"
-                vstate, obs, reward, done, info = self.env.step(vstate, clipped, ts.env_params,
-                                                                timer=timer)
-            with timer("env"):
-                if cfg.normalize:
-                    norm, n_reward = nrm.normalize_reward(norm, reward, done, update=True)
-                else:
-                    n_reward = reward
-                ep_ret = ep_ret + reward
-                ep_len = ep_len + 1
-                stat_r = stat_r + torch.where(done, ep_ret, 0.0).sum()
-                stat_c = stat_c + done.sum()
-                ep_ret = torch.where(done, 0.0, ep_ret)
-                ep_len = torch.where(done, 0, ep_len)
-                traj.reward[t], traj.done[t], traj.status[t] = n_reward, done, info["done_status"]
+        carry = (ts.normalizer, ts.vstate, ts.last_obs, ts.ep_return, ts.ep_len,
+                 ts.stat_return, ts.stat_count)
+        with timer("rollout"):
+            if graphed:
+                if self._rollout_graph is None:
+                    traj = self.new_transition()
+                    steps = weak_call(self.rollout_steps)
+                    step = lambda c, p, n, e: (steps(c, p, n, e, traj),)  # noqa: E731
+                    self._rollout_graph = (GraphedStep(step, dev, (self.env.generator,),
+                                                       self.env.graph_pool), traj)
+                graph, traj = self._rollout_graph
+                (carry,) = graph(carry, ts.params, noise, ts.env_params)
+            else:
+                traj = self.new_transition()
+                carry = self.rollout_steps(carry, ts.params, noise, ts.env_params, traj)
+        norm, vstate, obs, ep_ret, ep_len, stat_r, stat_c = carry
         if mesh is not None:
             norm, stat_r, stat_c = sync_statistics(mesh, ts, norm, stat_r, stat_c)
         with timer("policy"):
@@ -452,6 +447,55 @@ class PPO:
         ts = ts.replace(normalizer=norm, vstate=vstate, last_obs=obs, ep_return=ep_ret,
                         ep_len=ep_len, stat_return=stat_r, stat_count=stat_c)
         return ts, traj, last_value
+
+    def new_transition(self) -> Transition:
+        """An empty rollout buffer, [n_steps, n_envs, ...] per field."""
+        cfg, dev = self.cfg, self.device
+        T, E = cfg.n_steps, cfg.n_envs
+        # frames stay uint8: 4x smaller than float32
+        obs_shape, obs_dtype = (((self.obs_dim,), torch.float32) if self.obs_shape is None
+                                else (self.obs_shape, torch.uint8))
+        return Transition(
+            obs=torch.empty((T, E) + tuple(obs_shape), dtype=obs_dtype, device=dev),
+            action=torch.empty((T, E, self.act_dim), device=dev),
+            log_prob=torch.empty((T, E), device=dev),
+            value=torch.empty((T, E), device=dev),
+            reward=torch.empty((T, E), device=dev),
+            done=torch.empty((T, E), dtype=torch.bool, device=dev),
+            status=torch.empty((T, E), dtype=torch.int32, device=dev),
+        )
+
+    def rollout_steps(self, carry, params: dict, noise, env_params: RewardParams,
+                      traj: Transition):
+        """The body of a rollout: ``n_steps`` iterations of normalize, policy,
+        sample, env step (``step_eager``), reward normalization and episode
+        counters, written into ``traj``.  ``carry`` = (normalizer, vstate,
+        last_obs, ep_return, ep_len, stat_return, stat_count) in, the same
+        advanced out.  What the CUDA graph captures and the CPU runs."""
+        norm, vstate, obs, ep_ret, ep_len, stat_r, stat_c = carry
+        for t in range(self.cfg.n_steps):
+            if self.use_obs_norm:
+                norm, n_obs = nrm.normalize_obs(norm, obs, update=True)
+            else:
+                n_obs = obs
+            mean, log_std, value = self.apply(params, n_obs)
+            action = mean + torch.exp(log_std) * noise[t]
+            traj.obs[t], traj.action[t], traj.value[t] = n_obs, action, value
+            traj.log_prob[t] = gaussian_log_prob(mean, log_std, action)
+            clipped = torch.clamp(action, -1.0, 1.0)
+            vstate, obs, reward, done, info = self.env.step_eager(vstate, clipped, env_params)
+            if self.cfg.normalize:
+                norm, n_reward = nrm.normalize_reward(norm, reward, done, update=True)
+            else:
+                n_reward = reward
+            ep_ret = ep_ret + reward
+            ep_len = ep_len + 1
+            stat_r = stat_r + torch.where(done, ep_ret, 0.0).sum()
+            stat_c = stat_c + done.sum()
+            ep_ret = torch.where(done, 0.0, ep_ret)
+            ep_len = torch.where(done, 0, ep_len)
+            traj.reward[t], traj.done[t], traj.status[t] = n_reward, done, info["done_status"]
+        return norm, vstate, obs, ep_ret, ep_len, stat_r, stat_c
 
     def loss(self, params: dict, obs, action, old_log_prob, advantages, returns, hp: HParams):
         """Clipped surrogate + value MSE - entropy bonus on one minibatch ->
@@ -542,9 +586,9 @@ class PPO:
         holds tensors on the device (``kl_stopped`` a bool): ``ep_rew_mean``
         (NaN when no episode finished), ``episodes``, ``completions`` (steps
         whose ``done_status`` is 3), ``timesteps`` (int64) and the losses.
-        ``timer`` (a :class:`PhaseTimer`) splits the update into ``env``
-        (physics and the reward bookkeeping), ``render`` (image env only),
-        ``policy``, ``gae`` and ``update``.  With a ``mesh`` the episode
+        ``timer`` (a :class:`PhaseTimer`) splits the update into ``rollout``
+        (env steps, policy forwards and the reward bookkeeping), ``policy``
+        (the bootstrap value), ``gae`` and ``update``.  With a ``mesh`` the episode
         statistics, ``completions`` and ``timesteps`` count every rank's
         envs."""
         ts0 = ts

@@ -1,0 +1,343 @@
+"""CUDA graphs of the port's step functions: the counterpart of the JAX
+package's ``jax.jit`` around its env step (``api/vector.py:111,117``), its
+image env step (``api/image_obs.py:135,143``) and its rollout scan
+(``train/ppo.py:271-337``).
+
+:class:`GraphedStep` wraps an eager function ``fn(carry, *args) -> (carry,
+*outs)`` whose ``carry`` comes out with the structure it went in with (an env
+state, a learner's rollout state).  At its first call on a CUDA device it
+
+1. copies the tensor leaves of ``args`` into static buffers, and each
+   :class:`~gym_puzzles_tpu_torch.envs.config.RewardParams` among them into a
+   small float32 buffer whose 0-d views the function reads in place of the
+   Python floats (so that a changed reward parameter reaches the next replay
+   with no re-capture);
+2. runs ``fn`` once eagerly on a side stream (torch's warm-up: kernel
+   libraries load, the world table reaches constant memory, the step path's
+   host constants reach the card), then puts back the states of the
+   ``generators`` it drew from and the kernels' launch counts;
+3. captures ``fn`` on the static buffers into one graph, with the
+   ``generators`` registered so that each replay draws the numbers eager
+   calls would have drawn, and copies its outputs into one flat static
+   buffer, whose carry part is also the next replay's carry input.
+
+Each call then copies in the inputs that changed (a carry leaf that is the
+last call's output, unchanged since, is not copied: the graph's buffer still
+holds it), re-uploads each world table the graph's kernels read if another
+table was uploaded since (each kernel library has one ``__constant__``
+table), replays, adds the launches the graph holds to each kernel's count,
+and returns the outputs as views into one clone of the flat buffer: what a
+call returned is never changed by a later call, as in JAX.
+
+Anything that cannot be captured -- a host read, a host-to-device copy from
+pageable memory, a world table not uploaded -- raises at capture with
+CUDA's or PyTorch's reason.  A non-tensor leaf of the inputs (a
+``NormalizerState.gamma``) is part of the graph's signature: a call with
+another value, or with other shapes, captures anew.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import weakref
+
+import torch
+
+from gym_puzzles_tpu_torch.engine import _cuda_build as cb
+from gym_puzzles_tpu_torch.envs.config import RewardParams
+
+ALIGN = 512  # the caching allocator's alignment: reductions read the same layout
+
+
+# --------------------------------------------------------------------------
+# Trees of tensors
+# --------------------------------------------------------------------------
+
+
+def flatten(tree) -> tuple[list, tuple]:
+    """-> (leaves, spec).  Leaves are tensors and ``RewardParams``; dataclasses,
+    dicts, lists and tuples are walked; anything else is a static value kept
+    in ``spec``.  Two trees with equal specs have leaves of equal shape and
+    dtype, in the same places."""
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("tensor", tuple(x.shape), x.dtype, x.device)
+        if isinstance(x, RewardParams):
+            leaves.append(x)
+            return ("params",)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = tuple(f.name for f in dataclasses.fields(x))
+            return ("dataclass", type(x), names, tuple(walk(getattr(x, n)) for n in names))
+        if isinstance(x, dict):
+            return ("dict", tuple(x), tuple(walk(v) for v in x.values()))
+        if isinstance(x, (list, tuple)):
+            return (type(x), tuple(walk(v) for v in x))
+        return ("static", x)
+
+    spec = walk(tree)
+    return leaves, spec
+
+
+def unflatten(spec, leaves):
+    """The tree of ``spec`` with ``leaves`` (an iterable) in its leaf places."""
+    it = iter(leaves)
+
+    def build(s):
+        kind = s[0]
+        if kind in ("tensor", "params"):
+            return next(it)
+        if kind == "dataclass":
+            return s[1](**{n: build(c) for n, c in zip(s[2], s[3])})
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        if kind == "static":
+            return s[1]
+        return kind(build(c) for c in s[1])
+
+    return build(spec)
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """``t``'s strides if it is dense and non-overlapping (a permuted
+    contiguous tensor, e.g. an obs returned as ``obs.T``), else contiguous
+    strides: the static copy keeps the layout the eager function saw."""
+    expected = 1
+    for d in sorted(range(t.dim()), key=t.stride):
+        if t.shape[d] == 1:
+            continue
+        if t.stride(d) != expected:
+            return torch.empty(t.shape, device="meta").stride()
+        expected *= t.shape[d]
+    return t.stride()
+
+
+class FlatBuffer:
+    """Tensors of the given shapes, dtypes and strides laid out in one buffer
+    per dtype on ``device`` (so that ``torch.save`` takes the views), each
+    view aligned to ``ALIGN`` bytes."""
+
+    def __init__(self, like: list, device):
+        self.layout, sizes = [], {}
+        for t in like:
+            offset = sizes.get(t.dtype, 0)
+            self.layout.append((t.dtype, offset, tuple(t.shape), _strides(t)))
+            step = ALIGN // t.element_size()
+            sizes[t.dtype] = offset + -(-t.numel() // step) * step
+        self.buffers = {dtype: torch.empty((max(n, 1),), dtype=dtype, device=device)
+                        for dtype, n in sizes.items()}
+        self.views = self.views_of(self.buffers)
+
+    def views_of(self, buffers: dict) -> list:
+        """The leaf views into ``buffers`` (this layout's, or their clones)."""
+        return [buffers[dtype].as_strided(shape, strides, offset)
+                for dtype, offset, shape, strides in self.layout]
+
+    def snapshot(self) -> list:
+        """The leaves as views into one clone of each buffer."""
+        return self.views_of({dtype: b.clone() for dtype, b in self.buffers.items()})
+
+    def holds(self, t: torch.Tensor) -> bool:
+        for b in self.buffers.values():
+            start = b.data_ptr()
+            if start <= t.data_ptr() < start + b.numel() * b.element_size():
+                return True
+        return False
+
+
+class ParamsBuffer:
+    """One ``RewardParams`` as a float32 device buffer; :attr:`view` has a 0-d
+    view of it in each field."""
+
+    FIELDS = tuple(f.name for f in dataclasses.fields(RewardParams))
+
+    def __init__(self, device):
+        self.buffer = torch.empty((len(self.FIELDS),), dtype=torch.float32, device=device)
+        self.view = RewardParams(*self.buffer.unbind(0))
+        self.values = None
+
+    def load(self, params: RewardParams):
+        values = tuple(float(getattr(params, f)) for f in self.FIELDS)
+        if values != self.values:  # NaN never equals itself: copied again, harmlessly
+            self.buffer.copy_(torch.tensor(values, dtype=torch.float32))
+            self.values = values
+
+
+# --------------------------------------------------------------------------
+# The graph
+# --------------------------------------------------------------------------
+
+
+def weak_call(method):
+    """A function that calls the bound ``method`` through a weak reference to
+    its object: a graph its object holds does not keep the object alive, so
+    the object, its graph and the graph's memory go when the last reference
+    to the object does (not at some later garbage collection)."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        return ref()(*args)
+
+    return call
+
+
+class _Slot:
+    """A static input: its buffer view, and the tensor (weakly) and version
+    its content came from."""
+
+    __slots__ = ("view", "source", "version")
+
+    def __init__(self, view):
+        self.view, self.source, self.version = view, None, -1
+
+    def load(self, t: torch.Tensor):
+        if self.source is not None and self.source() is t and t._version == self.version:
+            return
+        self.view.copy_(t)
+        self.hold(t)
+
+    def hold(self, t: torch.Tensor):
+        self.source, self.version = weakref.ref(t), t._version
+
+
+@dataclasses.dataclass
+class _Capture:
+    graph: torch.cuda.CUDAGraph
+    signature: tuple
+    out_spec: tuple
+    n_carry: int
+    carry_slots: list
+    arg_slots: list  # _Slot or ParamsBuffer per leaf of args
+    out_buffer: FlatBuffer
+    launches: dict  # kernel name -> launches per replay
+    worlds: list  # (CudaKernel, ShapeTable) whose table the graph's launches read
+
+
+class GraphedStep:
+    """``fn(carry, *args) -> (carry, *outs)`` replayed as one CUDA graph on
+    ``device`` (module docstring).  ``generators`` are the CUDA generators
+    ``fn`` draws from; ``pool`` a memory pool shared with other graphs of
+    the same owner (``torch.cuda.graph_pool_handle()``), replayed one at a
+    time on one stream."""
+
+    def __init__(self, fn, device, generators=(), pool=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph runs on a CUDA device, got {self.device}")
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.generators = tuple(generators)
+        self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
+        self._cap: _Capture | None = None
+
+    @property
+    def launches(self) -> dict:
+        """Kernel launches per replay, by kernel name ({} before the first call)."""
+        return dict(self._cap.launches) if self._cap is not None else {}
+
+    def close(self):
+        """Release the graph (its memory goes back with the pool)."""
+        self._cap = None
+
+    def __call__(self, carry, *args):
+        carry_leaves, carry_spec = flatten(carry)
+        arg_leaves, arg_spec = flatten(args)
+        signature = (carry_spec, arg_spec)
+        if self._cap is None or self._cap.signature != signature:
+            self._cap = None  # the old graph's memory returns to the pool first
+            self._cap = self._capture(carry, args, signature)
+        cap = self._cap
+        with torch.cuda.device(self.device):
+            for slot, t in zip(cap.carry_slots, carry_leaves):
+                slot.load(t)
+            for slot, x in zip(cap.arg_slots, arg_leaves):
+                slot.load(x)
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            for kernel, table in cap.worlds:
+                kernel.set_world(table, self.device, stream)
+            cap.graph.replay()
+            for name, n in cap.launches.items():
+                cb.KERNELS[name].launches += n
+            snap = cap.out_buffer.snapshot()
+        for slot, t in zip(cap.carry_slots, snap[:cap.n_carry]):
+            slot.hold(t)
+        return unflatten(cap.out_spec, snap)
+
+    # ------------------------------------------------------------------
+    def _capture(self, carry, args, signature) -> _Capture:
+        dev = self.device
+        with torch.cuda.device(dev):
+            carry_leaves, carry_spec = flatten(carry)
+            arg_leaves, arg_spec = flatten(args)
+            tensors = [x for x in arg_leaves if isinstance(x, torch.Tensor)]
+            arg_buffer = FlatBuffer(tensors, dev) if tensors else None
+            views = iter(arg_buffer.views if arg_buffer else ())
+            arg_slots = [_Slot(next(views)) if isinstance(x, torch.Tensor) else ParamsBuffer(dev)
+                         for x in arg_leaves]
+            for slot, x in zip(arg_slots, arg_leaves):
+                slot.load(x)
+            static_args = unflatten(arg_spec, [s.view for s in arg_slots])
+
+            # warm-up on a side stream; the generators and launch counts as before
+            gen_states = [g.get_state() for g in self.generators]
+            counts = {name: k.launches for name, k in cb.KERNELS.items()}
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                warm = self.fn(carry, *static_args)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            warm_leaves, out_spec = flatten(warm)
+            if flatten(warm[0])[1] != carry_spec:
+                raise ValueError("the function's carry came out with another structure, "
+                                 "shape or dtype than it went in with")
+            if any(not isinstance(x, torch.Tensor) for x in warm_leaves):
+                raise ValueError("a graphed function's outputs hold tensors only")
+            n_carry = len(carry_leaves)
+            out_buffer = FlatBuffer(warm_leaves, dev)
+            del warm, warm_leaves
+            carry_slots = [_Slot(v) for v in out_buffer.views[:n_carry]]
+            for slot, t in zip(carry_slots, carry_leaves):
+                slot.load(t)
+            static_carry = unflatten(carry_spec, [s.view for s in carry_slots])
+            for g, state in zip(self.generators, gen_states):
+                g.set_state(state)
+            torch.cuda.synchronize(dev)
+            before = {name: k.launches for name, k in cb.KERNELS.items()}
+
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            # Another graph destroyed during the capture (the cyclic garbage
+            # collector finalizing an old env) would end it: collect first,
+            # and not while capturing.
+            gc.collect()
+            gc_was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    res = flatten(self.fn(static_carry, *static_args))
+                    if res[1] != out_spec:
+                        raise ValueError("the captured function's outputs differ from its "
+                                         "warm-up's")
+                    outs = [x.clone() if out_buffer.holds(x) and x is not v else x
+                            for x, v in zip(res[0], out_buffer.views)]
+                    for v, x in zip(out_buffer.views, outs):
+                        v.copy_(x)
+                    del res, outs
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
+            launches = {name: k.launches - before[name] for name, k in cb.KERNELS.items()
+                        if k.launches != before[name]}
+            index = dev.index
+            worlds = [(cb.KERNELS[name], cb.KERNELS[name].uploaded[index][0])
+                      for name in launches]
+            for name, k in cb.KERNELS.items():
+                k.launches = counts.get(name, 0)
+        return _Capture(graph=graph, signature=signature, out_spec=out_spec, n_carry=n_carry,
+                        carry_slots=carry_slots, arg_slots=arg_slots, out_buffer=out_buffer,
+                        launches=launches, worlds=worlds)

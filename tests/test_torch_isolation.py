@@ -2,8 +2,8 @@
 that holds a kernel's wrapper, the learner in ``train``, the pixel pipeline,
 the host surface -- old-Gym adapters, host rasterizer and its C++ loader,
 viewer, teleop -- the extras: scripted controllers, imitation, sweeps,
-profiling -- and the distribution: ``parallel``, its mesh, heartbeat and
-scaling bench), stepping each env family on the CPU through both backends,
+profiling -- the CUDA graphs of the step and the rollout, and the
+distribution: ``parallel``, its mesh, heartbeat and scaling bench), stepping each env family on the CPU through both backends,
 running one PPO update with each policy (MLP; CNN on the image env),
 restoring every committed policy file and taking one eval step of it, a
 single env step with a host-rendered frame, a BC round, a one-trial sweep
@@ -51,6 +51,7 @@ import gym_puzzles_tpu_torch.render._raster_cpp, gym_puzzles_tpu_torch.render.wi
 import gym_puzzles_tpu_torch.api.gym_compat, gym_puzzles_tpu_torch.teleop
 import gym_puzzles_tpu_torch.train.scripted, gym_puzzles_tpu_torch.train.imitate
 import gym_puzzles_tpu_torch.train.sweep, gym_puzzles_tpu_torch.utils.profiling
+import gym_puzzles_tpu_torch.utils.cuda_graph
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),
                         ("MultiRobotPuzzle-v2", "pallas"), ("MultiRobotPuzzleHeavy-v2", "fused"),
