@@ -36,7 +36,7 @@ Phases (each raises on failure; the script exits non-zero on any):
    update 3 must equal the uninterrupted one bit for bit (params, Adam state,
    normalizer, env state, generators, metrics); each update's wall time,
    env-steps/s including the learner, and the split of timed updates into
-   env step, policy forward, GAE and update;
+   the rollout and the learner (each one CUDA graph replay);
 8. eval of the committed v0 policy (``gym_puzzles_tpu_torch/policies/``)
    through ``check_policy``: its deterministic actions on the obs of 4096
    resets on the card against the CPU (1e-5), then 4096 deterministic
@@ -53,8 +53,8 @@ Phases (each raises on failure; the script exits non-zero on any):
    n_steps 32, batch 2048, 2 epochs, seed 0) through ``train_and_resume`` as
    in phase 7 with cuDNN held deterministic: 384 launches of the fused tick
    kernel in 3 updates and none of the solve kernel, the resumed update
-   bitwise, one more update split into rollout (one CUDA graph), policy, GAE
-   and update; the policy those updates produce: deterministic actions on the
+   bitwise, one more update split into rollout and learner (one CUDA graph
+   each); the policy those updates produce: deterministic actions on the
    obs of 256 reference resets on the card against the CPU, then 256
    deterministic episodes of at most 100 steps at 180/60 through
    ``evaluate_policy_batched`` (4 launches per env step); kernel A at the
@@ -86,10 +86,12 @@ Phases (each raises on failure; the script exits non-zero on any):
    launches;
 13. distribution (``gym_puzzles_tpu_torch.parallel``) at the v0 recipe of
    phase 7: (a) ``DistributedPPO`` on a one-rank NCCL group for 3 updates
-   against a plain ``PPO`` given the same action noise and minibatch orders:
-   every state field and metric equal bit for bit after each update, 192
-   kernel-A launches and none of B, env-steps/s of both, all-reduces per
-   update and one gradient all-reduce's wall time; (b) two processes share
+   (its learner's CUDA graph holding the all-reduces) against a plain
+   ``PPO`` given the same action noise and minibatch orders: every state
+   field and metric equal bit for bit after each update, 192 kernel-A
+   launches and none of B, env-steps/s of both, exactly 131 all-reduces per
+   update (one per minibatch and three more) and one gradient all-reduce's
+   wall time; (b) two processes share
    the card over gloo (NCCL refuses two ranks on one device), 2048 envs
    each, 2 updates: replicated state and metrics bitwise equal across the
    ranks after every update, env shards different, 64 launches per rank per
@@ -126,14 +128,28 @@ Phases (each raises on failure; the script exits non-zero on any):
    world table), the image env at 256 envs and 60/20 (frames), and two
    chained ``PPO.rollout`` replays at the v0 and pixel recipes against
    ``PPO.rollout_eager``; then, graph against eager in this call, the v0
-   main path's env-steps/s (in turns), PPO env-steps/s past update 1 at both
-   recipes, and kernels run, host launch calls and busy share per traced
-   flat and pixel step (``profile_step.profile_path``); peak device memory;
-6. (run after 7-16) both kernels' times per variant, beside the mean
+   main path's env-steps/s (in turns), and kernels run, host launch calls
+   and busy share per traced flat and pixel step
+   (``profile_step.profile_path``); peak device memory;
+17. (run after 16) the learner as a CUDA graph (``PPO.learn_steps``: the
+   bootstrap value, GAE, the minibatch orders drawn on the card, the epochs
+   with the target-KL stop as a device mask, the metrics): two chained
+   ``PPO.train_step`` updates (rollout graph, then learner graph) against
+   ``PPO.train_step_eager`` from the same state and generator states, every
+   element of state and metrics bit for bit, ``kl_stopped`` equal, launches
+   exact and none in the learner's graph: at the v0 recipe (default, then
+   with ``target_kl`` set so that the stop fires inside the first update, on
+   the same graphs), the pixel recipe (cuDNN deterministic) and the v2
+   recipe; then PPO env-steps/s past update 1 of each recipe with both
+   graphs and with the rollout graph and the eager learner (and at the v0
+   recipe both eager); and the v0 learner traced
+   (``profile_step.profile_learner``): kernels run, host launch calls,
+   device ms and busy share per update, graph against eager;
+6. (run after 7-17) both kernels' times per variant, beside the mean
    and warp-max live pairs per env of the inputs timed (the sweeps visit
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
-last line: ``{"ok": true, "device": {...}}``.
+then the whole script's time; last line: ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; imports nothing of JAX or the JAX package.
 """
@@ -171,7 +187,7 @@ from gym_puzzles_tpu_torch.parallel import train_state_specs
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
-from gym_puzzles_tpu_torch.train.ppo import PPO, PhaseTimer, PPOConfig
+from gym_puzzles_tpu_torch.train.ppo import PPO, PhaseTimer, PPOConfig, _untimed
 from gym_puzzles_tpu_torch.utils import cuda_graph
 
 ENV_ID = "MultiRobotPuzzle-v0"
@@ -219,9 +235,8 @@ SOLVED_FLAGS_SHARE = 0.001
 
 ROOT = Path(__file__).resolve().parent
 # phase 7: the JAX package's full-width v0 recipe (docs/BENCHMARKS.md:187)
-TRAIN_CONFIG = ROOT / "train_configs" / "ppo-mrp-v0.json"
-TRAIN_OVERRIDES = dict(n_envs=NUM_ENVS, n_steps=64, batch_size=8192, n_epochs=4,
-                       env_backend="fused", seed=0)
+TRAIN_CONFIG = profile_step.V0_CONFIG
+TRAIN_OVERRIDES = profile_step.V0_OVERRIDES
 TRAIN_UPDATES = 3
 TIMED_UPDATES = 2  # after the resumed update 3, each split by part
 # phase 8: the committed round-4 v0 policy and the bands around the JAX
@@ -237,10 +252,7 @@ RETURN_BAND = (5190.0, 6800.0)
 ACTION_TOL = 1e-5
 # phase 9: the JAX package's pixel recipe (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl
 # line 1; the rest as PPOConfig's defaults), seed 0
-CNN_CONFIG = dict(env_id=ENV_ID, policy="cnn", n_envs=256, n_steps=32, batch_size=2048,
-                  n_epochs=2, learning_rate=2.5e-4, ent_coef=0.005, target_kl=0.01,
-                  normalize=True, env_backend="fused", velocity_iters=60, position_iters=20,
-                  seed=0)
+CNN_CONFIG = profile_step.PIXEL_RECIPE
 CNN_TIMED_UPDATES = 1  # after the resumed update 3
 # renderer on the card against the CPU: spawns and mode per variant, downsample 4
 RENDER_CASES = {"MultiRobotPuzzle-v0": (4096, "human_vision"),
@@ -325,8 +337,17 @@ HV0_ID, HV0_ENVS = "MultiRobotPuzzleHeavy-v0", 16384  # kernel A's large class a
 # recipes; then graph against eager rates and kernels per step in this call
 GRAPH_CHANGE_AT = MAIN_STEPS // 2
 GRAPH_SHORT_STEPS = 50  # Heavy-v0 at 16384 envs, the alternating pair, the image env
-RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
 PROFILE_STEPS = 20
+# phase 17: the learner as a CUDA graph: two chained updates, graph replays
+# against the eager body, at the v0 recipe (default, then with target_kl set
+# so that the stop fires inside the first update, on the same graphs), the
+# pixel recipe and the v2 recipe; then PPO env-steps/s past update 1 of each
+# (three modes at the v0 recipe, the learner's two at the others)
+LEARNER_UPDATES = 2
+LEARNER_STOP_KL = 5e-4
+RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
+RATE_MODES = {"graphs": (True, True), "rollout graph, eager learner": (True, False),
+              "eager": (False, False)}
 
 
 def card() -> str:
@@ -1224,7 +1245,9 @@ def run_pixel_training(card_line) -> tuple:
           f"{sum(v.numel() for v in ts.params.values())} params; timed parts: rollout = one "
           f"CUDA graph of {cfg.n_steps} steps (physics: fused tick kernel, "
           f"{algo.env.cfg.frameskip} launches per step; render and stacks; policy; reward "
-          f"bookkeeping), policy = the bootstrap value", flush=True)
+          f"bookkeeping), update = the learner's CUDA graph (bootstrap value, GAE, "
+          f"{cfg.n_epochs} epochs of {cfg.n_steps * cfg.n_envs // cfg.batch_size} minibatches, "
+          f"metrics)", flush=True)
     return algo, ts, launches
 
 
@@ -1725,6 +1748,11 @@ def run_dist_world1(card_line) -> dict:
             calls = algo.mesh.calls - calls0
             if diff:
                 raise AssertionError(f"DistributedPPO at world size 1 differs from PPO in {diff}")
+            # the statistics, one per minibatch, the losses and the completions
+            want_calls = DIST_UPDATES * (3 + cfg.n_epochs * total // cfg.batch_size)
+            if calls != want_calls:
+                raise AssertionError(f"{calls} all-reduces in {DIST_UPDATES} updates, expected "
+                                     f"{want_calls}")
             grads = [torch.randn_like(v) for v in b.params.values()] + [
                 torch.zeros((), device=algo.device)]
             for _ in range(10):
@@ -2004,30 +2032,167 @@ def rollout_against_eager(cfg, card_line, what) -> dict:
     return dict(launches=launches)
 
 
-def ppo_rate(cfg, eager: bool) -> tuple:
-    """``RATE_UPDATES`` updates of a fresh learner at ``cfg``, its rollout a
-    CUDA graph or (``eager``) the body the graph captures: (env-steps/s past
-    update 1 including the learner, each update's wall seconds)."""
+def ppo_rate(cfg, mode: str) -> tuple:
+    """``RATE_UPDATES`` updates of a fresh learner at ``cfg`` in ``mode`` (of
+    ``RATE_MODES``: which of the rollout and the learner replay their CUDA
+    graph): (env-steps/s past update 1 including the learner, each update's
+    wall seconds, each update's ``kl_stopped`` and Adam count after it)."""
+    rollout_graph, learner_graph = RATE_MODES[mode]
     algo = PPO(cfg)
-    if eager:
-        algo.rollout = algo.rollout_eager  # train_step's rollout, as the eager body
     ts = algo.init_state()
-    walls = []
+    walls, stops = [], []
     for _ in range(RATE_UPDATES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ts, _metrics = algo.train_step(ts)
+        ts, metrics = algo._train_step(ts, None, None, _untimed, None, rollout_graph,
+                                       learner_graph)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    return (RATE_UPDATES - 1) * cfg.n_steps * cfg.n_envs / sum(walls[1:]), walls
+        stops.append((bool(metrics["kl_stopped"]), int(ts.opt_state.count)))
+    return (RATE_UPDATES - 1) * cfg.n_steps * cfg.n_envs / sum(walls[1:]), walls, stops
+
+
+def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=False) -> dict:
+    """Phase 17: ``LEARNER_UPDATES`` chained updates of the learner ``algo``
+    from its ``init_state()`` (``hparams`` set through ``set_hparams``
+    first; a learner whose graphs were captured replays them): ``train_step``
+    (the rollout's graph, then the learner's) against ``train_step_eager``
+    from the same state and generator states, so with the same noise, spawns
+    and minibatch orders; every element of the state (params, Adam state,
+    normalizer, env state, generators) and of the metrics equal bit for bit,
+    ``kl_stopped`` equal; launches counted just around the replays (n_steps x
+    frameskip of the learner's kernel per update), the learner's graph
+    holding none.  With ``stop_in_first`` the stop must fire inside update 1
+    (Adam's count then says at which minibatch)."""
+    cfg = algo.cfg
+    on_card(algo, what)
+    ts = algo.init_state()
+    if hparams:
+        ts = algo.set_hparams(ts, **hparams)
+    states = ts.generator.get_state(), algo.env.generator.get_state()
+    torch.cuda.synchronize()
+    step_cuda.reset_launch_count()
+    t0 = time.perf_counter()
+    got, gts = [], ts
+    for _ in range(LEARNER_UPDATES):
+        gts, metrics = algo.train_step(gts)
+        got.append((ckpt.to_tree(gts), metrics))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    held = algo.graph_launches
+    ts.generator.set_state(states[0])
+    algo.env.generator.set_state(states[1])
+    bad, ets, stops = torch.zeros((), dtype=torch.int64, device=algo.device), ts, []
+    for g_state, g_metrics in got:
+        ets, metrics = algo.train_step_eager(ets)
+        bad += mismatches((g_state, g_metrics), (ckpt.to_tree(ets), metrics))
+        stops.append((bool(g_metrics["kl_stopped"]), bool(metrics["kl_stopped"]),
+                      int(g_state["opt_state"]["count"])))
+    n_bad = int(bad)
+    n = LEARNER_UPDATES * cfg.n_steps * algo.env.cfg.frameskip
+    want = ({"step_fused": n, "solve_contacts": 0} if cfg.env_backend == "fused"
+            else {"step_fused": 0, "solve_contacts": n})
+    per_update = cfg.n_epochs * (cfg.n_steps * cfg.n_envs // cfg.batch_size)
+    print(f"  {what}: {LEARNER_UPDATES} chained updates, both CUDA graphs against the eager "
+          f"bodies: {n_bad} elements differ (state, generators, metrics); kl_stopped (graph, "
+          f"eager) and Adam count after each update "
+          + ", ".join(f"{a}/{b} {c}" for a, b, c in stops)
+          + f" ({per_update} minibatches per update); launches {launches}, graphs hold {held}; "
+          f"{wall:.2f} s for the replays (the first captures)  [{card_line}]", flush=True)
+    if n_bad:
+        raise AssertionError(f"{what}: the replays differ from the eager bodies")
+    if any(a != b for a, b, _ in stops):
+        raise AssertionError(f"{what}: kl_stopped differs: {stops}")
+    if stop_in_first and not (stops[0][0] and stops[0][2] < per_update):
+        raise AssertionError(f"{what}: the stop did not fire inside update 1: {stops}")
+    if launches != want or held.get("learner") != {}:
+        raise AssertionError(f"{what}: launches {launches} (graphs hold {held}), expected "
+                             f"{want} and none in the learner's graph")
+    return dict(launches=launches, stops=stops, wall=wall, held=held["learner"])
+
+
+def v2_config() -> PPOConfig:
+    """Phase 15's v2 recipe (:func:`variant_recipes`)."""
+    return next(cfg for name, cfg, _n, _w in variant_recipes() if name == "v2")
+
+
+def run_learner_graphs(card_line) -> dict:
+    """Phase 17: :func:`learner_against_eager` at the v0 recipe (default,
+    then ``target_kl = LEARNER_STOP_KL`` on the same learner, whose graphs it
+    replays), the pixel recipe (cuDNN held deterministic) and the v2 recipe;
+    then PPO env-steps/s past update 1 (``RATE_MODES``: all three at the v0
+    recipe, the graphed and the eager learner at the others) and the v0
+    learner traced (``profile_step.profile_learner``): kernels run, host
+    launch calls, device ms per update and busy share, graph against
+    eager."""
+    flat_cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()),
+                                             **TRAIN_OVERRIDES)
+    pixel_cfg, v2_cfg = PPOConfig(**CNN_CONFIG), v2_config()
+    flat = PPO(flat_cfg)
+    checks = {"v0": learner_against_eager(flat, card_line, "PPO at the v0 recipe"),
+              "v0 stop": learner_against_eager(
+                  flat, card_line, f"PPO at the v0 recipe, target_kl {LEARNER_STOP_KL} (the "
+                  "same graphs)", dict(target_kl=LEARNER_STOP_KL), stop_in_first=True)}
+    del flat
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        checks["pixel"] = learner_against_eager(PPO(pixel_cfg), card_line,
+                                                "PPO at the pixel recipe (cudnn deterministic)")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    checks["v2"] = learner_against_eager(PPO(v2_cfg), card_line, "PPO at the v2 recipe")
+
+    # every mode at the v0 recipe; the learner's two at the others
+    rates = {}
+    for name, cfg, modes in (("v0 recipe", flat_cfg, RATE_MODES),
+                             ("pixel recipe", pixel_cfg, list(RATE_MODES)[:2]),
+                             ("v2 recipe", v2_cfg, list(RATE_MODES)[:2])):
+        for mode in modes:
+            rate, walls, stops = ppo_rate(cfg, mode)
+            rates[(name, mode)] = rate
+            print(f"  PPO at the {name}, {mode}: updates {', '.join(f'{w:.3f}' for w in walls)}"
+                  f" s; {rate:,.0f} env-steps/s past update 1; kl_stopped and Adam count after "
+                  f"each update {', '.join(f'{a} {c}' for a, c in stops)}  [{card_line}]",
+                  flush=True)
+    # the pixel learner's trace: python -m gym_puzzles_tpu_torch.profile_step --learner --pixels
+    profiles = {"v0 recipe": profile_step.profile_learner(flat_cfg, suffix=f"  [{card_line}]")}
+    print("  graph against eager: PPO env-steps/s past update 1 "
+          + "; ".join(f"{name} {rates[(name, 'graphs')]:,.0f} against "
+                      f"{rates[(name, 'rollout graph, eager learner')]:,.0f} (eager learner)"
+                      + (f" and {rates[(name, 'eager')]:,.0f} (both eager)"
+                         if (name, "eager") in rates else "")
+                      for name in ("v0 recipe", "pixel recipe", "v2 recipe"))
+          + "; per learner "
+          + "; ".join(f"{name} kernels {p['learner_graph']['kernels_per_step']:.0f} against "
+                      f"{p['learner_eager']['kernels_per_step']:.0f}, host launch calls "
+                      f"{p['learner_graph']['host_launch_calls_per_step']:.0f} against "
+                      f"{p['learner_eager']['host_launch_calls_per_step']:.0f}, device ms "
+                      f"{p['learner_graph']['device_ms_per_step']:.2f} against "
+                      f"{p['learner_eager']['device_ms_per_step']:.2f}, busy share "
+                      f"{p['learner_graph']['device_busy_share']:.3f} against "
+                      f"{p['learner_eager']['device_busy_share']:.3f}"
+                      for name, p in profiles.items())
+          + "; host launch calls per whole update "
+          + "; ".join(f"{name} {p['update_graphs']['host_launch_calls_per_step']:.0f} against "
+                      f"{p['update_learner_eager']['host_launch_calls_per_step']:.0f}"
+                      for name, p in profiles.items())
+          + f"  [{card_line}]", flush=True)
+    held = {}
+    for c in checks.values():
+        for name, n in c["held"].items():
+            held[name] = held.get(name, 0) + n
+    return dict(checks=checks, rates=rates, profiles=profiles, held=held,
+                launches=sum(c["launches"]["step_fused"] for c in checks.values()))
 
 
 def run_graphs(dev, card_line) -> dict:
     """Phase 16 (constants ``GRAPH_*``): each CUDA graph of the main path
     against its eager body, bit for bit, launches exact; then graph against
-    eager from this call: env-steps/s of the v0 main path, PPO env-steps/s
-    past update 1 at the v0 and pixel recipes, kernels per step and busy
-    share traced (``profile_step.profile_path``); peak device memory."""
+    eager from this call: env-steps/s of the v0 main path, kernels per step
+    and busy share traced (``profile_step.profile_path``); peak device
+    memory.  (PPO rates: phase 17.)"""
     print(f"  peak device memory of phases 1-15: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated  [{card_line}]",
           flush=True)
@@ -2074,14 +2239,6 @@ def run_graphs(dev, card_line) -> dict:
     for eager in (False, True, True, False):
         r = run_main_path(dev, card_line, eager=eager)
         runs["eager" if eager else "graph"].append(r["env_steps_per_s"])
-    ppo = {}
-    for name, cfg in (("v0 recipe", flat_cfg), ("pixel recipe", pixel_cfg)):
-        for eager in (False, True):
-            rate, walls = ppo_rate(cfg, eager)
-            ppo[(name, eager)] = rate
-            print(f"  PPO at the {name}, rollout {'eager' if eager else 'CUDA graph'}: "
-                  f"updates {', '.join(f'{w:.3f}' for w in walls)} s; {rate:,.0f} env-steps/s "
-                  f"past update 1  [{card_line}]", flush=True)
     flat = profile_step.profile_path(PROFILE_STEPS, suffix=f"  [{card_line}]")
     pixel = profile_step.profile_path(PROFILE_STEPS, pixels=True, suffix=f"  [{card_line}]")
     print(f"  graph against eager, v0 fused 4096 envs {VI}/{PI}: env-steps/s "
@@ -2097,17 +2254,15 @@ def run_graphs(dev, card_line) -> dict:
           f"{pixel['graph']['host_launch_calls_per_step']:.1f} against "
           f"{pixel['eager']['host_launch_calls_per_step']:.1f}, busy share "
           f"{pixel['graph']['device_busy_share']:.3f} against "
-          f"{pixel['eager']['device_busy_share']:.3f}; PPO env-steps/s past update 1 "
-          + ", ".join(f"{name} {ppo[(name, False)]:,.0f} against {ppo[(name, True)]:,.0f}"
-                      for name in ("v0 recipe", "pixel recipe"))
-          + f"  [{card_line}]", flush=True)
+          f"{pixel['eager']['device_busy_share']:.3f} (PPO rates: phase 17)  [{card_line}]",
+          flush=True)
     print(f"  peak device memory of phase 16: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated  [{card_line}]",
           flush=True)
-    return dict(main_graph=runs["graph"], main_eager=runs["eager"], flat=flat, pixel=pixel,
-                ppo=ppo)
+    return dict(main_graph=runs["graph"], main_eager=runs["eager"], flat=flat, pixel=pixel)
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
@@ -2238,6 +2393,12 @@ def main() -> int:
     run_graphs(dev, card_line)
     print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    print("== 17. the learner as a CUDA graph against its eager body; graph against eager",
+          flush=True)
+    t_phase = time.perf_counter()
+    learner = run_learner_graphs(card_line)
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -2249,6 +2410,7 @@ def main() -> int:
           + f"; solve_contacts_plain MultiRobotPuzzle-v2 {solve_plain_v2_ms:.1f} ms  "
           f"[{card_line}]", flush=True)
     common = dict(route="cuda", library_ms=None, checked=True)
+    print(f"  chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [
         dict(common, name="step_fused",
              source="gym_puzzles_tpu_torch/csrc/step_fused.cu",
@@ -2269,6 +2431,8 @@ def main() -> int:
              dist_launches=dist_w1["launches"], dist_gloo_launches=dist_gloo["launches"],
              variant_eval_launches=variant_eval_launches,
              variant_train_launches=variant_train["step_fused"],
+             learner_check_launches=learner["launches"],
+             learner_graph_launches=learner["held"].get("step_fused", 0),
              hv0_16k_ms=hv0["fused_ms"], hv0_16k_bound_ms=hv0["fused_bound"]["ms"],
              hv0_16k_bound_by=hv0["fused_bound"]["by"], hv0_16k_plain_ms=hv0_plain_ms,
              hv0_16k_max_abs_err=hv0_diff["max"],
@@ -2279,6 +2443,7 @@ def main() -> int:
              source="gym_puzzles_tpu_torch/csrc/solve_contacts.cu",
              replaces="gym_puzzles_tpu/engine/solver_pallas.py:557",
              launches=staged_run["launches"], train_launches=variant_train["solve_contacts"],
+             learner_graph_launches=learner["held"].get("solve_contacts", 0),
              max_abs_err=solve_diff["max"],
              ms=v0["solve_ms"], plain_ms=solve_plain_ms,
              bound_ms=v0["solve_bound"]["ms"], bound_by=v0["solve_bound"]["by"]),

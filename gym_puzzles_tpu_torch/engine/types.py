@@ -223,6 +223,14 @@ class Replaceable:
         return dataclasses.replace(self, **changes)
 
 
+class DeviceScalars:
+    """Marks a dataclass whose fields are all Python floats holding float32
+    values (the reward parameters, the learner's hyperparameters).  A CUDA
+    graph reads one from a float32 device buffer, a 0-d view per field
+    (``utils/cuda_graph.py``), so that a new value reaches the next replay
+    without a new capture; code that reads it must accept those views."""
+
+
 _DEVICE_CONSTS: dict = {}
 
 

@@ -22,6 +22,8 @@ import dataclasses
 
 import numpy as np
 
+from gym_puzzles_tpu_torch.engine.types import DeviceScalars
+
 # Shared physics rate (00.py:39, 02.py:39, core.py:16)
 FPS = 50
 DT = 1.0 / FPS
@@ -128,7 +130,7 @@ _SHAPED = (
 
 
 @dataclasses.dataclass(frozen=True)
-class RewardParams:
+class RewardParams(DeviceScalars):
     """Reward/curriculum parameters.
 
     Defaults mirror ``set_reward_params`` (00.py:231-239, 02.py:216-225,

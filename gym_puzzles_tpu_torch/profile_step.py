@@ -3,6 +3,7 @@ its eager body.
 
     python -m gym_puzzles_tpu_torch.profile_step [steps] [--env ID] [--backend fused|pallas]
         [--pixels]
+    python -m gym_puzzles_tpu_torch.profile_step --learner [--pixels]
 
 Runs ``make(ID, num_envs=4096, backend=...)`` on the card (default
 MultiRobotPuzzle-v0, the fused backend; reset, 10 warm-up steps of random
@@ -19,6 +20,14 @@ With ``--pixels`` the env is the image env of the pixel recipe
 physics (``frameskip`` ticks and the env logic) and the render of one state
 are traced alone as well: a replay cannot be split.  The last line is the
 same as one JSON object.  Needs a CUDA device.
+
+With ``--learner`` it traces PPO at the v0 recipe (``V0_CONFIG`` with
+``V0_OVERRIDES``: 4096 envs, n_steps 64, batch 8192, 4 epochs) or, with
+``--pixels``, at the pixel recipe (``PIXEL_RECIPE``), after two updates
+(both CUDA graphs captured): the learner alone (bootstrap value, GAE, the
+minibatch epochs and metrics on one rollout's Transition) as its graph's
+replay and as its eager body, then whole updates as both graphs and as the
+rollout graph with the eager learner; the same numbers per update.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -33,11 +43,22 @@ from torch.profiler import ProfilerActivity, profile
 
 from gym_puzzles_tpu_torch import make
 from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
+from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig, _untimed
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
 # the pixel recipe's env (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl)
 PIXEL_ENVS, PIXEL_ITERS = 256, (60, 20)
+# the JAX package's full-width v0 recipe (docs/BENCHMARKS.md:187) and its
+# pixel recipe (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl line 1; the rest as
+# PPOConfig's defaults), seed 0
+V0_CONFIG = Path(__file__).resolve().parents[1] / "train_configs" / "ppo-mrp-v0.json"
+V0_OVERRIDES = dict(n_envs=NUM_ENVS, n_steps=64, batch_size=8192, n_epochs=4,
+                    env_backend="fused", seed=0)
+PIXEL_RECIPE = dict(env_id=ENV_ID, policy="cnn", n_envs=PIXEL_ENVS, n_steps=32, batch_size=2048,
+                    n_epochs=2, learning_rate=2.5e-4, ent_coef=0.005, target_kl=0.01,
+                    normalize=True, env_backend="fused", velocity_iters=PIXEL_ITERS[0],
+                    position_iters=PIXEL_ITERS[1], seed=0)
 # the host's runtime calls that put work on a stream
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -75,11 +96,11 @@ def trace(fn, steps: int) -> dict:
                 top=top)
 
 
-def report(name: str, t: dict, suffix: str = ""):
-    print(f"{name}: {t['wall_ms_per_step']:.3f} ms/step wall, {t['device_ms_per_step']:.3f} "
-          f"ms/step on the device (busy share {t['device_busy_share']:.3f}), "
-          f"{t['kernels_per_step']:.1f} kernels/step run, "
-          f"{t['host_launch_calls_per_step']:.1f} host launch calls/step "
+def report(name: str, t: dict, suffix: str = "", unit: str = "step"):
+    print(f"{name}: {t['wall_ms_per_step']:.3f} ms/{unit} wall, {t['device_ms_per_step']:.3f} "
+          f"ms/{unit} on the device (busy share {t['device_busy_share']:.3f}), "
+          f"{t['kernels_per_step']:.1f} kernels/{unit} run, "
+          f"{t['host_launch_calls_per_step']:.1f} host launch calls/{unit} "
           f"({t['graph_launches_per_step']:.1f} graph launches){suffix}", flush=True)
     for k in t["top"]:
         print(f"  {k['device_ms']:10.3f} ms  x{k['count']:<6d} {k['name']}", flush=True)
@@ -125,9 +146,55 @@ def profile_path(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
     return out
 
 
+def recipe(pixels: bool = False) -> PPOConfig:
+    """The v0 recipe, or the pixel recipe."""
+    if pixels:
+        return PPOConfig(**PIXEL_RECIPE)
+    return PPOConfig.from_reference_json(json.loads(V0_CONFIG.read_text()), **V0_OVERRIDES)
+
+
+def profile_learner(cfg: PPOConfig, suffix: str = "") -> dict:
+    """The learner traces of the module docstring for ``cfg``, one update
+    each, printed (per update); returns them."""
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device")
+    algo = PPO(cfg)
+    ts = algo.init_state()
+    for _ in range(2):
+        ts, _metrics = algo.train_step(ts)
+    start = ts
+    ts, traj = algo._rollout(start, None, _untimed, None, graphed=True)
+    torch.cuda.synchronize()
+    out = dict(device=torch.cuda.get_device_name(0), env_id=cfg.env_id, policy=cfg.policy,
+               num_envs=cfg.n_envs, n_steps=cfg.n_steps, batch_size=cfg.batch_size,
+               n_epochs=cfg.n_epochs)
+    for graphed in (True, False):
+        out["learner_graph" if graphed else "learner_eager"] = trace(
+            lambda _k, g=graphed: algo._learn(start, ts, traj, None, None, g), 1)
+    state = {"ts": ts}
+
+    def update(learner_graph):
+        def fn(_k):
+            state["ts"] = algo._train_step(state["ts"], None, None, _untimed, None, True,
+                                           learner_graph)[0]
+        return fn
+
+    out["update_graphs"] = trace(update(True), 1)
+    out["update_learner_eager"] = trace(update(False), 1)
+    name = (f"PPO {cfg.policy} at {cfg.n_envs} envs, n_steps {cfg.n_steps}, batch "
+            f"{cfg.batch_size}, {cfg.n_epochs} epochs")
+    for key, what in (("learner_graph", "the learner, CUDA graph replay"),
+                      ("learner_eager", "the learner, eager body"),
+                      ("update_graphs", "one update, rollout and learner graphs"),
+                      ("update_learner_eager", "one update, rollout graph, eager learner")):
+        report(f"{name}: {what}", out[key], suffix, unit="update")
+    return out
+
+
 def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
-         pixels: bool = False) -> dict:
-    out = profile_path(steps, env_id, backend, pixels)
+         pixels: bool = False, learner: bool = False) -> dict:
+    out = (profile_learner(recipe(pixels)) if learner
+           else profile_path(steps, env_id, backend, pixels))
     print(json.dumps(out))
     return out
 
@@ -139,5 +206,8 @@ if __name__ == "__main__":
     parser.add_argument("--backend", default="fused", choices=("fused", "pallas"))
     parser.add_argument("--pixels", action="store_true",
                         help="the image env of the pixel recipe (256 envs, 60/20, frameskip 4)")
+    parser.add_argument("--learner", action="store_true",
+                        help="PPO updates at the v0 recipe (or, with --pixels, the pixel "
+                             "recipe): the learner and whole updates, graph and eager")
     args = parser.parse_args()
-    main(args.steps, args.env, args.backend, args.pixels)
+    main(args.steps, args.env, args.backend, args.pixels, args.learner)

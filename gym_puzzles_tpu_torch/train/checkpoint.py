@@ -50,7 +50,8 @@ def to_tree(x):
 
 def from_tree(template, tree):
     """Inverse of :func:`to_tree` onto ``template``'s classes and devices;
-    a generator of the template is set to the saved state in place."""
+    a generator of the template is set to the saved state in place; a saved
+    number becomes the template's 0-d tensor."""
     if dataclasses.is_dataclass(template):
         return type(template)(**{f.name: from_tree(getattr(template, f.name), tree[f.name])
                                  for f in dataclasses.fields(template)})
@@ -62,6 +63,10 @@ def from_tree(template, tree):
         template.set_state(tree)
         return template
     if isinstance(template, torch.Tensor):
+        if not isinstance(tree, torch.Tensor):
+            # a number where the template holds a 0-d tensor: Adam's step
+            # count, an int in checkpoints written before it moved to the device
+            tree = torch.tensor(tree, dtype=template.dtype)
         if tree.shape != template.shape or tree.dtype != template.dtype:
             raise ValueError(f"checkpoint tensor {tuple(tree.shape)} {tree.dtype} does not "
                              f"match {tuple(template.shape)} {template.dtype}")

@@ -42,8 +42,7 @@ LOG_STD_TARGET = float(np.log(0.2))
 
 def bc_opt_init(params: dict) -> AdamState:
     """A fresh Adam state for the BC regression."""
-    return AdamState(mu={k: torch.zeros_like(v) for k, v in params.items()},
-                     nu={k: torch.zeros_like(v) for k, v in params.items()}, count=0)
+    return AdamState.zeros_like(params)
 
 
 def bc_loss(algo, params, obs_n, act, ret_n):

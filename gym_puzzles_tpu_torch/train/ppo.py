@@ -4,25 +4,32 @@ Two policies: ``policy='mlp'`` (flat observations, :class:`ActorCritic`) and
 ``policy='cnn'`` (stacked uint8 frames rendered on the device by
 :class:`DeviceImageVectorEnv`, :class:`CnnActorCritic`).
 
-One :meth:`PPO.train_step` is one update, in three parts that can be called
-alone:
+One :meth:`PPO.train_step` is one update, in two parts, the counterparts of
+the JAX package's one jit-compiled train step (``ppo.py:219,249-470``):
 
 1. :meth:`PPO.rollout` steps the vectorized env ``n_steps`` times on the
    device (``step_eager`` of the env; with ``env_backend='fused'``, the
    default, each engine tick is one launch of the fused tick kernel), all
    ``n_steps`` steps with the policy between them replayed as one CUDA graph
-   on the card;
-2. :func:`compute_gae` computes GAE(gamma, lambda) advantages;
-3. :meth:`PPO.update` runs ``n_epochs`` x minibatch SGD with the clipped
-   surrogate, entropy bonus, value loss, global-norm gradient clipping, an
-   Adam step written as ``optax.scale_by_adam`` computes it, and the JAX
-   package's target-KL stop.
+   on the card (the body: :meth:`PPO.rollout_steps`);
+2. the learner (the body: :meth:`PPO.learn_steps`, replayed as a second CUDA
+   graph on the card): the bootstrap value, GAE(gamma, lambda) advantages
+   (:func:`compute_gae`), the minibatch orders, then ``n_epochs`` x minibatch
+   SGD with the clipped surrogate, entropy bonus, value loss, global-norm
+   gradient clipping, an Adam step written as ``optax.scale_by_adam``
+   computes it, and the JAX package's target-KL stop as a device mask; then
+   the metrics.  No value is read back to the host on the way.
 
 Randomness comes from two ``torch.Generator`` s on the device: the
 learner's (action noise and minibatch order) and the env's own (spawns).
 Both ride the :class:`TrainState` and advance in place.  The rollout and
-the update take the action noise and the minibatch order as arguments too,
+the learner take the action noise and the minibatch order as arguments too,
 so that a test can give them.
+
+Hyperparameters (:class:`HParams`) are Python floats in the TrainState, so a
+sweep or a schedule changes them between updates; the learner reads them as
+0-d float32 tensors (on the card, views of the graph's buffer), and Adam's
+step count is a device tensor, so neither needs a new capture.
 
 Data parallelism (``parallel/mesh.py``): the rollout, the update and
 :meth:`PPO.train_step` take a ``mesh`` (the process group of the ranks,
@@ -49,13 +56,13 @@ from torch.func import functional_call
 from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
 from gym_puzzles_tpu_torch.api.registry import make
 from gym_puzzles_tpu_torch.api.vector import resolve_device
-from gym_puzzles_tpu_torch.engine.types import Replaceable
+from gym_puzzles_tpu_torch.engine.types import DeviceScalars, Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.envs.config import RewardParams, _f32
 from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
                                                   gaussian_entropy, gaussian_log_prob)
-from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
+from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, as_device_scalars, weak_call
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 
@@ -124,11 +131,13 @@ class PPOConfig:
 
 
 @dataclasses.dataclass
-class HParams(Replaceable):
+class HParams(Replaceable, DeviceScalars):
     """Optimization knobs read on every step, as Python floats holding
     float32 values: a sweep or a schedule changes them between updates.
     ``lr_base`` is what ``anneal_lr`` scales; ``target_kl <= 0`` disables
-    the KL stop."""
+    the KL stop.  The learner reads them as 0-d float32 tensors
+    (``as_device_scalars``; in its CUDA graph, views of the graph's float32
+    buffer), so a new value needs no new capture."""
 
     learning_rate: float
     lr_base: float
@@ -158,11 +167,18 @@ class HParams(Replaceable):
 @dataclasses.dataclass
 class AdamState(Replaceable):
     """``optax.scale_by_adam``'s state: the moments keyed as the params,
-    and the step count."""
+    and the step count ([] int32 on the params' device, as optax's)."""
 
     mu: dict
     nu: dict
-    count: int
+    count: torch.Tensor
+
+    @staticmethod
+    def zeros_like(params: dict) -> "AdamState":
+        dev = next(iter(params.values())).device
+        return AdamState(mu={k: torch.zeros_like(v) for k, v in params.items()},
+                         nu={k: torch.zeros_like(v) for k, v in params.items()},
+                         count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 @dataclasses.dataclass
@@ -201,10 +217,10 @@ class Transition:
 
 class PhaseTimer:
     """Wall seconds by part of an update (``rollout``: the ``n_steps`` steps,
-    one graph replay on the card; ``policy``: the bootstrap value; ``gae``;
-    ``update``), for measurement only: each part
-    starts and ends with a device synchronise, which the untimed path never
-    does."""
+    one graph replay on the card; ``update``: the learner -- bootstrap value,
+    GAE, epochs and metrics --, one more replay), for measurement only: each
+    part starts and ends with a device synchronise, which the untimed path
+    never does."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -227,10 +243,11 @@ def _untimed(name):
     return contextlib.nullcontext()
 
 
-def compute_gae(traj: Transition, last_value, gamma: float, gae_lambda: float):
+def compute_gae(traj: Transition, last_value, gamma, gae_lambda):
     """GAE with SB3's semantics (``done`` marks an episode boundary) ->
-    (advantages, returns), both [n_steps, n_envs]."""
-    gl = _f32(np.float32(gamma) * np.float32(gae_lambda))
+    (advantages, returns), both [n_steps, n_envs].  ``gamma`` and
+    ``gae_lambda`` are 0-d float32 tensors (the learner's ``HParams``)."""
+    gl = gamma * gae_lambda
     advantages = torch.empty_like(traj.value)
     gae = torch.zeros_like(last_value)
     next_value = last_value
@@ -243,19 +260,32 @@ def compute_gae(traj: Transition, last_value, gamma: float, gae_lambda: float):
     return advantages, advantages + traj.value
 
 
+# optax's decay rates as float32 values: its ``decay ** count`` runs in float32
+_ADAM_DECAYS = (float(np.float32(ADAM_B1)), float(np.float32(ADAM_B2)))
+
+
+def bias_corrections(count: torch.Tensor) -> tuple:
+    """optax's bias corrections ``1 - b1 ** count`` and ``1 - b2 ** count``
+    in float32 on ``count``'s device, with no host read: each power is taken
+    in float64 and rounded once to float32 (the float32 power to within one
+    unit in the last place, on the CPU and the card alike), the subtraction
+    is float32's."""
+    c = count.to(torch.float64)
+    return tuple(1.0 - torch.pow(b, c).to(torch.float32) for b in _ADAM_DECAYS)
+
+
 @torch.no_grad()
-def adam_update(params: dict, grads: list, opt: AdamState, lr: float, eps: float = ADAM_EPS):
+def adam_update(params: dict, grads: list, opt: AdamState, lr, eps: float = ADAM_EPS):
     """``optax.scale_by_adam`` (b1 0.9, b2 0.999, ``eps`` added after the
-    square root) and a ``-lr`` step -> (params, opt_state).  Out of place:
-    the inputs are left as they were."""
+    square root) and a ``-lr`` step (``lr`` a float or a 0-d tensor) ->
+    (params, opt_state).  Out of place: the inputs are left as they were."""
     keys = list(params)
     mu = torch._foreach_add(torch._foreach_mul(grads, 1 - ADAM_B1),
                             torch._foreach_mul([opt.mu[k] for k in keys], ADAM_B1))
     nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - ADAM_B2),
                             torch._foreach_mul([opt.nu[k] for k in keys], ADAM_B2))
     count = opt.count + 1
-    bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(count))
-    bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(count))
+    bc1, bc2 = bias_corrections(count)
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
     step = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
     new = torch._foreach_add([params[k] for k in keys], torch._foreach_mul(step, -lr))
@@ -266,10 +296,18 @@ def adam_update(params: dict, grads: list, opt: AdamState, lr: float, eps: float
 @torch.no_grad()
 def adam_step(params: dict, grads: list, opt: AdamState, hp: HParams):
     """The PPO update's optimizer: global-norm clip to ``hp.max_grad_norm``,
-    then :func:`adam_update` at ``hp.learning_rate``."""
+    then :func:`adam_update` at ``hp.learning_rate`` (``hp`` as 0-d
+    tensors)."""
     g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     clip = torch.clamp(hp.max_grad_norm / (g_norm + 1e-6), max=1.0)
     return adam_update(params, torch._foreach_mul(grads, clip), opt, hp.learning_rate)
+
+
+def draw_orders(generator: torch.Generator, n_epochs: int, total: int, device) -> torch.Tensor:
+    """The minibatch order of each epoch, [n_epochs, total]: one
+    ``torch.randperm`` per epoch from ``generator``."""
+    return torch.stack([torch.randperm(total, generator=generator, device=device)
+                        for _ in range(n_epochs)])
 
 
 def sync_statistics(mesh, ts: TrainState, norm: nrm.NormalizerState, stat_r, stat_c):
@@ -334,6 +372,7 @@ class PPO:
         self.net = self.build_net(torch.Generator().manual_seed(cfg.seed)).to(self.device)
         self.default_env_params = env.default_params()
         self._rollout_graph = None  # (GraphedStep, its Transition) on a CUDA device
+        self._learner_graph = None  # (mesh, GraphedStep, its generator) on a CUDA device
         self.env_params = (
             self.default_env_params.set_reward_params(**dict(cfg.reward_params))
             if cfg.reward_params else self.default_env_params
@@ -363,9 +402,7 @@ class PPO:
         scalar = lambda v, dtype: torch.tensor(v, dtype=dtype, device=dev)  # noqa: E731
         return TrainState(
             params=params,
-            opt_state=AdamState(mu={k: torch.zeros_like(v) for k, v in params.items()},
-                                nu={k: torch.zeros_like(v) for k, v in params.items()},
-                                count=0),
+            opt_state=AdamState.zeros_like(params),
             normalizer=nrm.NormalizerState.create(self.obs_dim, E, _f32(cfg.gamma), dev),
             vstate=vstate,
             last_obs=obs,
@@ -395,10 +432,10 @@ class PPO:
         noise (default: drawn from ``ts.generator``).  The action is ``mean +
         exp(log_std) * noise``; the transition keeps it unclipped with its
         log-prob, and the env steps with it clipped to [-1, 1].  The
-        bootstrap value is taken on the last obs normalized with the
-        end-of-rollout statistics, without updating them.  With a ``mesh``
-        those statistics and the episode counters are synced first
-        (:func:`sync_statistics`).
+        bootstrap value (:meth:`bootstrap_value`) is taken on the last obs
+        normalized with the end-of-rollout statistics, without updating them.
+        With a ``mesh`` those statistics and the episode counters are synced
+        first (:func:`sync_statistics`).
 
         On a CUDA device the ``n_steps`` steps (:meth:`rollout_steps`) replay
         one CUDA graph, the counterpart of the JAX package's ``lax.scan`` of
@@ -408,15 +445,22 @@ class PPO:
         rollout: clone it to keep it.  On the CPU this is
         :meth:`rollout_eager`.  ``timer`` times the steps as ``rollout``, the
         bootstrap value as ``policy``."""
-        return self._rollout(ts, noise, timer, mesh, graphed=self.device.type == "cuda")
+        ts, traj = self._rollout(ts, noise, timer, mesh, graphed=self.device.type == "cuda")
+        with timer("policy"):
+            last_value = self.bootstrap_value(ts.params, ts.normalizer, ts.last_obs)
+        return ts, traj, last_value
 
     @torch.no_grad()
     def rollout_eager(self, ts: TrainState, noise=None, timer=_untimed, mesh=None):
         """:meth:`rollout` with its steps run as eager PyTorch ops and kernel
         launches, into a Transition of its own: what the CPU runs and what
         the card's graph replay is held against."""
-        return self._rollout(ts, noise, timer, mesh, graphed=False)
+        ts, traj = self._rollout(ts, noise, timer, mesh, graphed=False)
+        with timer("policy"):
+            last_value = self.bootstrap_value(ts.params, ts.normalizer, ts.last_obs)
+        return ts, traj, last_value
 
+    @torch.no_grad()
     def _rollout(self, ts: TrainState, noise, timer, mesh, graphed: bool):
         cfg, dev = self.cfg, self.device
         T, E = cfg.n_steps, cfg.n_envs
@@ -440,13 +484,16 @@ class PPO:
         norm, vstate, obs, ep_ret, ep_len, stat_r, stat_c = carry
         if mesh is not None:
             norm, stat_r, stat_c = sync_statistics(mesh, ts, norm, stat_r, stat_c)
-        with timer("policy"):
-            n_last = (nrm.normalize_obs(norm, obs, update=False)[1] if self.use_obs_norm
-                      else obs)
-            last_value = self.apply(ts.params, n_last)[2]
         ts = ts.replace(normalizer=norm, vstate=vstate, last_obs=obs, ep_return=ep_ret,
                         ep_len=ep_len, stat_return=stat_r, stat_count=stat_c)
-        return ts, traj, last_value
+        return ts, traj
+
+    @torch.no_grad()
+    def bootstrap_value(self, params: dict, norm: nrm.NormalizerState, obs) -> torch.Tensor:
+        """The value of ``obs`` (the rollout's last, raw), normalized with
+        ``norm`` without updating it -> [E]."""
+        n_last = nrm.normalize_obs(norm, obs, update=False)[1] if self.use_obs_norm else obs
+        return self.apply(params, n_last)[2]
 
     def new_transition(self) -> Transition:
         """An empty rollout buffer, [n_steps, n_envs, ...] per field."""
@@ -500,14 +547,14 @@ class PPO:
     def loss(self, params: dict, obs, action, old_log_prob, advantages, returns, hp: HParams):
         """Clipped surrogate + value MSE - entropy bonus on one minibatch ->
         (total, (policy_loss, value_loss, entropy, approx_kl)).  Advantages
-        are normalized per minibatch with their population std."""
+        are normalized per minibatch with their population std.  ``hp`` holds
+        0-d float32 tensors."""
         mean, log_std, value = self.apply(params, obs)
         log_prob = gaussian_log_prob(mean, log_std, action)
         ratio = torch.exp(log_prob - old_log_prob)
         a = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
-        lo = _f32(np.float32(1.0) - np.float32(hp.clip_range))
-        hi = _f32(np.float32(1.0) + np.float32(hp.clip_range))
-        pg_loss = -torch.minimum(a * ratio, a * torch.clamp(ratio, lo, hi)).mean()
+        clipped = torch.clamp(ratio, 1.0 - hp.clip_range, 1.0 + hp.clip_range)
+        pg_loss = -torch.minimum(a * ratio, a * clipped).mean()
         v_loss = ((returns - value) ** 2).mean()
         ent = gaussian_entropy(log_std)
         total = pg_loss + hp.vf_coef * v_loss - hp.ent_coef * ent
@@ -515,34 +562,43 @@ class PPO:
             approx_kl = ((ratio - 1.0) - torch.log(ratio)).mean()
         return total, (pg_loss.detach(), v_loss.detach(), ent.detach(), approx_kl)
 
-    def update(self, ts: TrainState, traj: Transition, advantages, returns, perms=None,
-               mesh=None):
-        """``n_epochs`` passes of minibatch SGD -> (ts with params and Adam
-        state advanced, metrics).
+    def learn_steps(self, carry, norm: nrm.NormalizerState, last_obs, hp: HParams, perms,
+                    stats, traj: Transition, generator=None, mesh=None):
+        """The body of the learner, the rest of the JAX package's train step
+        (``ppo.py:358-455``): what the learner's CUDA graph captures and the
+        CPU runs.  ``carry`` = (params, opt_state) in, the same advanced out;
+        ``norm`` and ``last_obs`` are the rollout's (synced) last, for the
+        bootstrap value; ``hp`` the hyperparameters (Python floats, or the
+        graph's 0-d views); ``perms`` the minibatch orders [n_epochs, n_steps
+        * n_envs], or None to draw them from ``generator``
+        (:func:`draw_orders`); ``stats`` = (stat_return, stat_count,
+        timesteps) of the state the rollout started from followed by the
+        rollout's (synced) stat_return and stat_count.  -> ((params,
+        opt_state), metrics).
 
-        ``perms`` [n_epochs, n_steps * n_envs] is the minibatch order of each
-        epoch (default: ``torch.randperm`` from ``ts.generator``, all drawn
-        first); each epoch takes ``n_minibatch = total // mb_size``
-        minibatches of ``mb_size = min(batch_size, total)`` from the front
-        of its permutation.
-
-        Target-KL stop (the JAX package's, not SB3's): the minibatch whose
-        approx KL exceeds ``1.5 * target_kl`` still applies its update, and
-        every later minibatch of the update is skipped; ``target_kl <= 0``
-        disables it.  ``approx_kl`` is the KL of the last applied minibatch.
-        The JAX package runs the skipped minibatches frozen and averages
-        their losses too; here ``loss``, ``policy_loss``, ``value_loss`` and
-        ``entropy`` average the minibatches that ran.  The stop reads each
-        minibatch's KL on the host.
+        Every minibatch of every epoch runs.  Target-KL stop (the JAX
+        package's, ``ppo.py:415-424``): the minibatch whose approx KL exceeds
+        ``1.5 * target_kl`` still applies its update, and from the next one
+        on params, Adam's moments and count stay as they are (``torch.where``
+        on a device bool); ``target_kl <= 0`` disables it.  ``approx_kl`` is
+        the KL of the last applied minibatch, ``kl_stopped`` the device bool;
+        ``loss``, ``policy_loss``, ``value_loss`` and ``entropy`` average all
+        ``n_epochs * n_minibatch`` minibatches, the frozen ones included.
 
         With a ``mesh`` of W ranks each rank takes minibatches of
         ``batch_size // W`` of its own transitions (advantages normalized
         within them); the gradients and the KL are averaged over the ranks in
         one all-reduce per minibatch, before the clip and the KL test, so that
         every rank applies the same step and stops at the same minibatch; the
-        four losses are averaged over the ranks at the end."""
-        cfg, hp = self.cfg, ts.hparams
+        four losses are averaged and ``completions`` summed over the ranks at
+        the end."""
+        cfg, dev = self.cfg, self.device
+        params, opt = carry
+        hp = as_device_scalars(hp, dev)
         world = 1 if mesh is None else mesh.world_size
+        with torch.no_grad():
+            last_value = self.bootstrap_value(params, norm, last_obs)
+            advantages, returns = compute_gae(traj, last_value, hp.gamma, hp.gae_lambda)
         total = traj.done.numel()
         flat = lambda x: x.reshape((total,) + x.shape[2:])  # noqa: E731
         obs, action, old_lp = flat(traj.obs), flat(traj.action), flat(traj.log_prob)
@@ -550,65 +606,173 @@ class PPO:
         mb_size = max(1, min(cfg.batch_size // world, total))
         n_minibatch = max(1, total // mb_size)
         if perms is None:
-            perms = torch.stack([torch.randperm(total, generator=ts.generator, device=self.device)
-                                 for _ in range(cfg.n_epochs)])
-        kl_limit = (float(np.float32(1.5) * np.float32(hp.target_kl))
-                    if hp.target_kl > 0.0 else None)
-        params = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
-        opt = ts.opt_state
-        stats, kl_last, stopped = [], torch.zeros((), device=self.device), False
-        for epoch in range(cfg.n_epochs):
-            for idx in perms[epoch, : n_minibatch * mb_size].view(n_minibatch, mb_size):
-                loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx], old_lp[idx],
-                                                   adv[idx], ret[idx], hp)
-                grads = list(torch.autograd.grad(loss, list(params.values())))
-                if mesh is not None:
-                    *grads, kl = mesh.mean(grads + [kl])
-                params, opt = adam_step(params, grads, opt, hp)
-                params = {k: v.requires_grad_() for k, v in params.items()}
-                stats.append(torch.stack([loss.detach(), pg, vl, ent]))
-                kl_last = kl
-                if kl_limit is not None and kl.item() > kl_limit:
-                    stopped = True
-                    break
-            if stopped:
-                break
-        means = torch.stack(stats).mean(dim=0)
+            perms = draw_orders(generator, cfg.n_epochs, total, dev)
+        idxs = perms[:, : n_minibatch * mb_size].reshape(cfg.n_epochs * n_minibatch, mb_size)
+        params, opt, stop, kl_last, losses = self.minibatch_steps(
+            params, opt, (obs, action, old_lp, adv, ret), idxs, hp, mesh)
+        means = losses.mean(dim=0)
+        completions = (traj.status == 3).sum()
         if mesh is not None:
             (means,) = mesh.mean([means])
+            (completions,) = mesh.sum([completions])
+        stat_return0, stat_count0, timesteps0, stat_r, stat_c = stats
+        completed = stat_c - stat_count0
+        mean_ret = torch.where(completed > 0, (stat_r - stat_return0)
+                               / torch.clamp_min(completed, 1.0), float("nan"))
         metrics = {"loss": means[0], "policy_loss": means[1], "value_loss": means[2],
-                   "entropy": means[3], "approx_kl": kl_last, "kl_stopped": stopped}
-        ts = ts.replace(params={k: v.detach() for k, v in params.items()}, opt_state=opt)
-        return ts, metrics
+                   "entropy": means[3], "approx_kl": kl_last, "kl_stopped": stop,
+                   "ep_rew_mean": mean_ret, "episodes": completed, "completions": completions,
+                   "timesteps": timesteps0 + total * world}
+        return (params, opt), metrics
+
+    def minibatch_steps(self, params: dict, opt: AdamState, batch: tuple, idxs, hp: HParams,
+                        mesh=None) -> tuple:
+        """SGD on the minibatches ``batch[i][idxs[j]]`` for each row j of
+        ``idxs`` in turn (``batch`` = flat obs, action, old log-prob,
+        advantages, returns), with the target-KL stop of :meth:`learn_steps`
+        (``hp`` as 0-d tensors) -> (params, opt_state, stop, kl_last, losses
+        [len(idxs), 4]: total, policy, value, entropy of each minibatch)."""
+        obs, action, old_lp, adv, ret = batch
+        dev = self.device
+        kl_limit, kl_on = 1.5 * hp.target_kl, hp.target_kl > 0.0
+        stop = torch.zeros((), dtype=torch.bool, device=dev)
+        kl_last = torch.zeros((), device=dev)
+        params = {k: v.detach().requires_grad_() for k, v in params.items()}
+        losses = []
+        for idx in idxs:
+            loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx], old_lp[idx],
+                                               adv[idx], ret[idx], hp)
+            grads = list(torch.autograd.grad(loss, list(params.values())))
+            if mesh is not None:
+                *grads, kl = mesh.mean(grads + [kl])
+            new_params, new_opt = adam_step(params, grads, opt, hp)
+            with torch.no_grad():
+                use = ~stop
+                keep = lambda new, old: {k: torch.where(use, new[k], old[k])  # noqa: E731
+                                         for k in old}
+                params = {k: v.requires_grad_() for k, v in keep(new_params, params).items()}
+                opt = AdamState(mu=keep(new_opt.mu, opt.mu), nu=keep(new_opt.nu, opt.nu),
+                                count=torch.where(use, new_opt.count, opt.count))
+                stop = stop | (use & kl_on & (kl > kl_limit))
+                kl_last = torch.where(use, kl, kl_last)
+            losses.append(torch.stack([loss.detach(), pg, vl, ent]))
+        return ({k: v.detach() for k, v in params.items()}, opt, stop, kl_last,
+                torch.stack(losses))
+
+    def update(self, ts: TrainState, traj: Transition, perms=None, mesh=None, start=None):
+        """The learner alone, as eager ops (:meth:`learn_steps`) on ``ts``
+        after a rollout that produced ``traj`` -> (ts with params, Adam state
+        and timesteps advanced, metrics).  ``start`` is the state the rollout
+        began from, for the episode metrics and ``timesteps`` (default:
+        ``ts``, so that ``episodes`` is 0).
+
+        ``perms`` [n_epochs, n_steps * n_envs] is the minibatch order of each
+        epoch (default: :func:`draw_orders` from ``ts.generator``, all drawn
+        first: ``torch.randperm``, which a CUDA graph captures as it is);
+        each epoch takes ``n_minibatch = total // mb_size`` minibatches of
+        ``mb_size = min(batch_size, total)`` from the front of its
+        permutation.  The stop, the metrics and the mesh are
+        :meth:`learn_steps`'."""
+        start = ts if start is None else start
+        stats = (start.stat_return, start.stat_count, start.timesteps, ts.stat_return,
+                 ts.stat_count)
+        (params, opt), metrics = self.learn_steps(
+            (ts.params, ts.opt_state), ts.normalizer, ts.last_obs, ts.hparams, perms, stats,
+            traj, ts.generator, mesh)
+        return ts.replace(params=params, opt_state=opt, timesteps=metrics["timesteps"]), metrics
+
+    def learner_inputs(self, start: TrainState, ts: TrainState, perms=None) -> tuple:
+        """(carry, args) of the learner's graph for ``ts`` after a rollout
+        from ``start``: the inputs whose ``cuda_graph.flatten`` spec is its
+        signature."""
+        stats = (start.stat_return, start.stat_count, start.timesteps, ts.stat_return,
+                 ts.stat_count)
+        return ((ts.params, ts.opt_state),
+                (ts.normalizer, ts.last_obs, ts.hparams, perms, stats))
+
+    def _learner(self, mesh) -> tuple:
+        """The learner's GraphedStep for ``mesh`` and the generator its
+        replays draw the minibatch orders from (captured at its first call,
+        on the rollout graph's memory pool; the Transition it reads is the
+        rollout graph's buffer, through its closure: a replay refills that
+        buffer without bumping its version, so an argument slot would keep
+        the first rollout's)."""
+        if self._learner_graph is None or self._learner_graph[0] is not mesh:
+            self._learner_graph = None  # the old graph's memory returns to the pool first
+            traj = self._rollout_graph[1]
+            gen = torch.Generator(device=self.device)
+            body = weak_call(self.learn_steps)
+            fn = lambda c, n, o, h, p, s: body(c, n, o, h, p, s, traj, gen, mesh)  # noqa: E731
+            counters = () if mesh is None else (mesh,)
+            self._learner_graph = (mesh, GraphedStep(fn, self.device, (gen,),
+                                                     self.env.graph_pool, counters), gen)
+        return self._learner_graph[1:]
 
     def train_step(self, ts: TrainState, noise=None, perms=None, timer=_untimed, mesh=None):
-        """One update: rollout, GAE, epochs -> (ts, metrics).  ``metrics``
-        holds tensors on the device (``kl_stopped`` a bool): ``ep_rew_mean``
-        (NaN when no episode finished), ``episodes``, ``completions`` (steps
-        whose ``done_status`` is 3), ``timesteps`` (int64) and the losses.
+        """One update: rollout, then the learner (bootstrap value, GAE,
+        epochs, metrics) -> (ts, metrics).  ``metrics`` holds tensors on the
+        device (``kl_stopped`` a bool): ``ep_rew_mean`` (NaN when no episode
+        finished), ``episodes``, ``completions`` (steps whose ``done_status``
+        is 3), ``timesteps`` (int64) and the losses (:meth:`learn_steps`).
         ``timer`` (a :class:`PhaseTimer`) splits the update into ``rollout``
-        (env steps, policy forwards and the reward bookkeeping), ``policy``
-        (the bootstrap value), ``gae`` and ``update``.  With a ``mesh`` the episode
-        statistics, ``completions`` and ``timesteps`` count every rank's
-        envs."""
-        ts0 = ts
-        ts, traj, last_value = self.rollout(ts, noise, timer, mesh)
-        with timer("gae"):
-            advantages, returns = compute_gae(traj, last_value, ts.hparams.gamma,
-                                              ts.hparams.gae_lambda)
+        and ``update``.  With a ``mesh`` the episode statistics,
+        ``completions`` and ``timesteps`` count every rank's envs.
+
+        On a CUDA device the rollout replays its CUDA graph, then
+        :func:`sync_statistics` runs eagerly (with a ``mesh``), then the
+        learner replays a second graph (captured at the first update; the
+        minibatch orders drawn in it from a generator registered with it,
+        whose state is taken from ``ts.generator`` before the replay and
+        given back after, so that the orders are the ones an eager call
+        draws).  The branch is chosen by ``mesh.backend``: with no mesh, a
+        mesh of no process group or an NCCL mesh (whose per-minibatch
+        all-reduces the graph captures) the learner is that graph; on a gloo
+        mesh, whose all-reduce stages a CUDA buffer through the host and
+        cannot be captured, it runs as the same body eagerly on the card.  On
+        the CPU this is :meth:`train_step_eager`."""
+        cuda = self.device.type == "cuda"
+        learner_graph = cuda and (mesh is None or mesh.backend != "gloo")
+        return self._train_step(ts, noise, perms, timer, mesh, cuda, learner_graph)
+
+    def train_step_eager(self, ts: TrainState, noise=None, perms=None, timer=_untimed,
+                         mesh=None):
+        """:meth:`train_step` with both parts run as eager ops and kernel
+        launches: what the CPU runs and what the card's replays are held
+        against."""
+        return self._train_step(ts, noise, perms, timer, mesh, False, False)
+
+    def _train_step(self, ts, noise, perms, timer, mesh, rollout_graph: bool,
+                    learner_graph: bool):
+        start = ts
+        ts, traj = self._rollout(ts, noise, timer, mesh, rollout_graph)
         with timer("update"):
-            ts, metrics = self.update(ts, traj, advantages, returns, perms, mesh)
-        completed = ts.stat_count - ts0.stat_count
-        mean_ret = torch.where(completed > 0, (ts.stat_return - ts0.stat_return)
-                               / torch.clamp_min(completed, 1.0), float("nan"))
-        completions = (traj.status == 3).sum()
-        world = 1
-        if mesh is not None:
-            (completions,), world = mesh.sum([completions]), mesh.world_size
-        ts = ts.replace(timesteps=ts0.timesteps + traj.done.numel() * world)
-        metrics.update(ep_rew_mean=mean_ret, episodes=completed,
-                       completions=completions, timesteps=ts.timesteps)
-        return ts, metrics
+            return self._learn(start, ts, traj, perms, mesh, learner_graph)
+
+    def _learn(self, start, ts, traj, perms, mesh, graphed: bool):
+        """The learner on ``ts`` after a rollout from ``start`` into ``traj``:
+        its graph (``traj`` must then be the rollout graph's buffer) or
+        :meth:`update`."""
+        if not graphed:
+            return self.update(ts, traj, perms, mesh, start)
+        if self._rollout_graph is None or traj is not self._rollout_graph[1]:
+            raise ValueError("the learner's graph reads the rollout graph's Transition")
+        carry, args = self.learner_inputs(start, ts, perms)
+        graph, gen = self._learner(mesh)
+        gen.set_state(ts.generator.get_state())
+        (params, opt), metrics = graph(carry, *args)
+        ts.generator.set_state(gen.get_state())
+        return ts.replace(params=params, opt_state=opt, timesteps=metrics["timesteps"]), metrics
+
+    @property
+    def graph_launches(self) -> dict:
+        """Kernel launches per replay of each of the learner's CUDA graphs
+        that has been captured, by part (``rollout``, ``learner``)."""
+        out = {}
+        if self._rollout_graph is not None:
+            out["rollout"] = self._rollout_graph[0].launches
+        if self._learner_graph is not None:
+            out["learner"] = self._learner_graph[1].launches
+        return out
 
     # ------------------------------------------------------------------
     def apply_curriculum(self, ts: TrainState, update: int, n_updates: int) -> TrainState:

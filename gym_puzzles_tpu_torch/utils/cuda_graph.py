@@ -1,39 +1,50 @@
 """CUDA graphs of the port's step functions: the counterpart of the JAX
 package's ``jax.jit`` around its env step (``api/vector.py:111,117``), its
-image env step (``api/image_obs.py:135,143``) and its rollout scan
-(``train/ppo.py:271-337``).
+image env step (``api/image_obs.py:135,143``), its rollout scan
+(``train/ppo.py:271-337``) and the rest of its train step (``train/ppo.py:
+339-470``: bootstrap value, GAE, minibatch epochs, metrics).
 
 :class:`GraphedStep` wraps an eager function ``fn(carry, *args) -> (carry,
 *outs)`` whose ``carry`` comes out with the structure it went in with (an env
-state, a learner's rollout state).  At its first call on a CUDA device it
+state, a learner's rollout state, its params and Adam state).  At its first
+call on a CUDA device it
 
 1. copies the tensor leaves of ``args`` into static buffers, and each
-   :class:`~gym_puzzles_tpu_torch.envs.config.RewardParams` among them into a
-   small float32 buffer whose 0-d views the function reads in place of the
-   Python floats (so that a changed reward parameter reaches the next replay
-   with no re-capture);
+   :class:`~gym_puzzles_tpu_torch.engine.types.DeviceScalars` dataclass among
+   them (``RewardParams``, the learner's ``HParams``) into a small float32
+   buffer whose 0-d views the function reads in place of the Python floats
+   (so that a changed value reaches the next replay with no re-capture);
 2. runs ``fn`` once eagerly on a side stream (torch's warm-up: kernel
-   libraries load, the world table reaches constant memory, the step path's
-   host constants reach the card), then puts back the states of the
-   ``generators`` it drew from and the kernels' launch counts;
+   libraries load, cuDNN and cuBLAS pick their algorithms, the world table
+   reaches constant memory, the step path's host constants reach the card, a
+   process group makes its communicator), then puts back the states of the
+   ``generators`` it drew from, the kernels' launch counts and the
+   ``counters``' calls;
 3. captures ``fn`` on the static buffers into one graph, with the
    ``generators`` registered so that each replay draws the numbers eager
    calls would have drawn, and copies its outputs into one flat static
    buffer, whose carry part is also the next replay's carry input.
 
-Each call then copies in the inputs that changed (a carry leaf that is the
-last call's output, unchanged since, is not copied: the graph's buffer still
-holds it), re-uploads each world table the graph's kernels read if another
-table was uploaded since (each kernel library has one ``__constant__``
-table), replays, adds the launches the graph holds to each kernel's count,
-and returns the outputs as views into one clone of the flat buffer: what a
-call returned is never changed by a later call, as in JAX.
+Each call then copies in the inputs that changed (one multi-tensor copy per
+dtype; a leaf that is the tensor last copied or returned there, unchanged
+since by its version counter, is not copied), re-uploads each world table the
+graph's kernels read if another table was uploaded since (each kernel library
+has one ``__constant__`` table), replays, adds the launches the graph holds
+to each kernel's count and the calls it holds to each counter, and returns
+the outputs as views into one clone of the flat buffer: what a call returned
+is never changed by a later call, as in JAX.
+
+A replay writes its buffers without bumping any tensor's version counter,
+so a buffer that one graph fills and another reads (the rollout's
+``Transition``, which the learner's graph reads) must reach the second
+function through its closure, never through an argument: an argument slot
+would see the same tensor at the same version and skip the copy.
 
 Anything that cannot be captured -- a host read, a host-to-device copy from
-pageable memory, a world table not uploaded -- raises at capture with
-CUDA's or PyTorch's reason.  A non-tensor leaf of the inputs (a
-``NormalizerState.gamma``) is part of the graph's signature: a call with
-another value, or with other shapes, captures anew.
+pageable memory, a world table not uploaded, a collective staged through the
+host -- raises at capture with CUDA's or PyTorch's reason.  A non-tensor leaf
+of the inputs (a ``NormalizerState.gamma``) is part of the graph's signature:
+a call with another value, or with other shapes, captures anew.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import weakref
 import torch
 
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
+from gym_puzzles_tpu_torch.engine.types import DeviceScalars
 from gym_puzzles_tpu_torch.envs.config import RewardParams
 
 ALIGN = 512  # the caching allocator's alignment: reductions read the same layout
@@ -56,7 +68,7 @@ ALIGN = 512  # the caching allocator's alignment: reductions read the same layou
 
 
 def flatten(tree) -> tuple[list, tuple]:
-    """-> (leaves, spec).  Leaves are tensors and ``RewardParams``; dataclasses,
+    """-> (leaves, spec).  Leaves are tensors and ``DeviceScalars``; dataclasses,
     dicts, lists and tuples are walked; anything else is a static value kept
     in ``spec``.  Two trees with equal specs have leaves of equal shape and
     dtype, in the same places."""
@@ -66,9 +78,9 @@ def flatten(tree) -> tuple[list, tuple]:
         if isinstance(x, torch.Tensor):
             leaves.append(x)
             return ("tensor", tuple(x.shape), x.dtype, x.device)
-        if isinstance(x, RewardParams):
+        if isinstance(x, DeviceScalars):
             leaves.append(x)
-            return ("params",)
+            return ("params", type(x))
         if dataclasses.is_dataclass(x) and not isinstance(x, type):
             names = tuple(f.name for f in dataclasses.fields(x))
             return ("dataclass", type(x), names, tuple(walk(getattr(x, n)) for n in names))
@@ -149,21 +161,36 @@ class FlatBuffer:
 
 
 class ParamsBuffer:
-    """One ``RewardParams`` as a float32 device buffer; :attr:`view` has a 0-d
-    view of it in each field."""
+    """One ``DeviceScalars`` dataclass of type ``cls`` (default
+    ``RewardParams``) as a float32 device buffer; :attr:`view` has a 0-d view
+    of it in each field."""
 
-    FIELDS = tuple(f.name for f in dataclasses.fields(RewardParams))
-
-    def __init__(self, device):
-        self.buffer = torch.empty((len(self.FIELDS),), dtype=torch.float32, device=device)
-        self.view = RewardParams(*self.buffer.unbind(0))
+    def __init__(self, device, cls=RewardParams):
+        self.fields = tuple(f.name for f in dataclasses.fields(cls))
+        self.buffer = torch.empty((len(self.fields),), dtype=torch.float32, device=device)
+        self.view = cls(*self.buffer.unbind(0))
         self.values = None
 
-    def load(self, params: RewardParams):
-        values = tuple(float(getattr(params, f)) for f in self.FIELDS)
+    def load(self, params: DeviceScalars):
+        values = tuple(float(getattr(params, f)) for f in self.fields)
         if values != self.values:  # NaN never equals itself: copied again, harmlessly
-            self.buffer.copy_(torch.tensor(values, dtype=torch.float32))
+            host = torch.tensor(values, dtype=torch.float32)
+            # from pinned memory the copy does not wait for the card (PyTorch
+            # keeps the pinned block until the copy has run)
+            self.buffer.copy_(host.pin_memory() if self.buffer.is_cuda else host,
+                              non_blocking=True)
             self.values = values
+
+
+def as_device_scalars(x: DeviceScalars, device) -> DeviceScalars:
+    """``x`` with its fields as 0-d float32 views of one buffer on
+    ``device``, as a graph reads it; ``x`` itself when its fields are
+    tensors already (a graph's views)."""
+    if all(isinstance(getattr(x, f.name), torch.Tensor) for f in dataclasses.fields(x)):
+        return x
+    buf = ParamsBuffer(device, type(x))
+    buf.load(x)
+    return buf.view
 
 
 # --------------------------------------------------------------------------
@@ -193,14 +220,34 @@ class _Slot:
     def __init__(self, view):
         self.view, self.source, self.version = view, None, -1
 
+    def stale(self, t: torch.Tensor) -> bool:
+        """Whether the view does not hold ``t``'s content by the record: ``t``
+        is another tensor, or its version moved."""
+        return self.source is None or self.source() is not t or t._version != self.version
+
     def load(self, t: torch.Tensor):
-        if self.source is not None and self.source() is t and t._version == self.version:
-            return
-        self.view.copy_(t)
-        self.hold(t)
+        if self.stale(t):
+            self.view.copy_(t)
+            self.hold(t)
 
     def hold(self, t: torch.Tensor):
         self.source, self.version = weakref.ref(t), t._version
+
+
+def _load_slots(slots, values):
+    """Copy each value whose slot is stale into it: one multi-tensor copy
+    per dtype (``ParamsBuffer`` leaves load their own buffer)."""
+    by_dtype: dict = {}
+    for slot, x in zip(slots, values):
+        if isinstance(slot, ParamsBuffer):
+            slot.load(x)
+        elif slot.stale(x):
+            dsts, srcs = by_dtype.setdefault(slot.view.dtype, ([], []))
+            dsts.append(slot.view)
+            srcs.append(x)
+            slot.hold(x)
+    for dsts, srcs in by_dtype.values():
+        torch._foreach_copy_(dsts, srcs)
 
 
 @dataclasses.dataclass
@@ -213,6 +260,7 @@ class _Capture:
     arg_slots: list  # _Slot or ParamsBuffer per leaf of args
     out_buffer: FlatBuffer
     launches: dict  # kernel name -> launches per replay
+    calls: list  # per counter, the calls per replay
     worlds: list  # (CudaKernel, ShapeTable) whose table the graph's launches read
 
 
@@ -221,9 +269,11 @@ class GraphedStep:
     ``device`` (module docstring).  ``generators`` are the CUDA generators
     ``fn`` draws from; ``pool`` a memory pool shared with other graphs of
     the same owner (``torch.cuda.graph_pool_handle()``), replayed one at a
-    time on one stream."""
+    time on one stream.  ``counters`` are objects whose ``calls`` attribute
+    counts host-side calls ``fn`` makes (a mesh's all-reduces): each replay
+    adds the calls its capture made."""
 
-    def __init__(self, fn, device, generators=(), pool=None):
+    def __init__(self, fn, device, generators=(), pool=None, counters=()):
         self.fn = fn
         self.device = torch.device(device)
         if self.device.type != "cuda":
@@ -231,6 +281,7 @@ class GraphedStep:
         if self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.generators = tuple(generators)
+        self.counters = tuple(counters)
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
         self._cap: _Capture | None = None
 
@@ -252,16 +303,15 @@ class GraphedStep:
             self._cap = self._capture(carry, args, signature)
         cap = self._cap
         with torch.cuda.device(self.device):
-            for slot, t in zip(cap.carry_slots, carry_leaves):
-                slot.load(t)
-            for slot, x in zip(cap.arg_slots, arg_leaves):
-                slot.load(x)
+            _load_slots(cap.carry_slots + cap.arg_slots, carry_leaves + arg_leaves)
             stream = torch.cuda.current_stream(self.device).cuda_stream
             for kernel, table in cap.worlds:
                 kernel.set_world(table, self.device, stream)
             cap.graph.replay()
             for name, n in cap.launches.items():
                 cb.KERNELS[name].launches += n
+            for counter, n in zip(self.counters, cap.calls):
+                counter.calls += n
             snap = cap.out_buffer.snapshot()
         for slot, t in zip(cap.carry_slots, snap[:cap.n_carry]):
             slot.hold(t)
@@ -276,15 +326,16 @@ class GraphedStep:
             tensors = [x for x in arg_leaves if isinstance(x, torch.Tensor)]
             arg_buffer = FlatBuffer(tensors, dev) if tensors else None
             views = iter(arg_buffer.views if arg_buffer else ())
-            arg_slots = [_Slot(next(views)) if isinstance(x, torch.Tensor) else ParamsBuffer(dev)
-                         for x in arg_leaves]
-            for slot, x in zip(arg_slots, arg_leaves):
-                slot.load(x)
+            arg_slots = [_Slot(next(views)) if isinstance(x, torch.Tensor)
+                         else ParamsBuffer(dev, type(x)) for x in arg_leaves]
+            _load_slots(arg_slots, arg_leaves)
             static_args = unflatten(arg_spec, [s.view for s in arg_slots])
 
-            # warm-up on a side stream; the generators and launch counts as before
+            # warm-up on a side stream; the generators, launch counts and
+            # counters as before
             gen_states = [g.get_state() for g in self.generators]
             counts = {name: k.launches for name, k in cb.KERNELS.items()}
+            calls = [c.calls for c in self.counters]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -305,6 +356,8 @@ class GraphedStep:
             static_carry = unflatten(carry_spec, [s.view for s in carry_slots])
             for g, state in zip(self.generators, gen_states):
                 g.set_state(state)
+            for c, n in zip(self.counters, calls):
+                c.calls = n
             torch.cuda.synchronize(dev)
             before = {name: k.launches for name, k in cb.KERNELS.items()}
 
@@ -338,6 +391,9 @@ class GraphedStep:
                       for name in launches]
             for name, k in cb.KERNELS.items():
                 k.launches = counts.get(name, 0)
+            per_replay = [c.calls - n for c, n in zip(self.counters, calls)]
+            for c, n in zip(self.counters, calls):
+                c.calls = n
         return _Capture(graph=graph, signature=signature, out_spec=out_spec, n_carry=n_carry,
                         carry_slots=carry_slots, arg_slots=arg_slots, out_buffer=out_buffer,
-                        launches=launches, worlds=worlds)
+                        launches=launches, calls=per_replay, worlds=worlds)

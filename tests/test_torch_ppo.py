@@ -272,9 +272,8 @@ def test_train_step_matches_jax(jax_learner, run):
     """Params and Adam moments within 1e-4 (a sixth of one Adam step at lr
     6.3e-4; measured at most 8.4e-7), the normalizer, last obs and episode
     returns within 1e-5, the metrics within 1e-4 relative, timesteps
-    equal.  With ``target_kl=1e-6`` the stop fires in both (the port skips
-    the frozen minibatches, so its losses average fewer and are not
-    compared)."""
+    equal.  With ``target_kl=1e-6`` the stop fires in both, and both run the
+    frozen minibatches after it: their losses enter the averages too."""
     start, jts, jm = jax_learner[run]
     hp = {"target_kl": 1e-6} if run == "kl_stop" else {}
     ts, m = _port_step(start, hp)
@@ -300,10 +299,9 @@ def test_train_step_matches_jax(jax_learner, run):
     assert ts.timesteps.dtype == torch.int64
 
     assert bool(m["kl_stopped"]) == bool(jm["kl_stopped"]) == (run == "kl_stop")
-    keys = ["approx_kl", "ep_rew_mean", "episodes"]
-    if run == "default":
-        keys += ["loss", "policy_loss", "value_loss", "entropy"]
-    for k in keys:
+    assert m["kl_stopped"].dtype == torch.bool
+    for k in ("approx_kl", "ep_rew_mean", "episodes", "loss", "policy_loss", "value_loss",
+              "entropy"):
         # the policy loss is a mean of terms of size ~1 (normalized
         # advantages) that cancel to ~6e-4: its rounding is held to those
         # terms' scale (measured 1.3e-7), the rest to 1e-4 relative
