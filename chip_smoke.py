@@ -12,16 +12,20 @@ Phases (each raises on failure; the script exits non-zero on any):
 3. hold the fused tick kernel against its plain PyTorch version
    (``world.step``) on the card: the injected 3-body push world (10 ticks at
    8/4), v0 random spawns at 4096 envs (1 tick at 180/60), 1000 envs (the
-   ragged edge), 4096 spawns each of Heavy-v0, v2 and v3 (the shapes the
-   main paths give it), and the exact against the incremental position-pass
+   ragged edge), 4096 spawns each of Heavy-v0, v2, v3 (the shapes the
+   main paths give it) and v3 built with five heavy agents (48 pairs, the
+   large size class; its spawns beyond the position limit held to what
+   float32 itself reaches from inputs moved by its rounding,
+   ``check_spawns_reach``), and the exact against the incremental position-pass
    trig on a 12-tick v0 contact drive; and, once phase 5 has run it, on the
    state the 200-step v0 fused drive ends with (resting contacts, sleeping
    bodies), with the kernel's time on that state;
 4. hold the contact-solve kernel against its plain version
    (``solver_cuda.solve_contacts_plain``): the push world through the staged
-   tick, the constraints of 4096 v0 spawns, 1000 v0 spawns (ragged) and 4096
-   v2 spawns after the PyTorch prologue, exact against incremental trig on
-   each, and on 12-tick v0 and v2 contact drives;
+   tick, the constraints of 4096 v0 spawns, 1000 v0 spawns (ragged), 4096
+   v2 spawns and 4096 spawns of v3 with five heavy agents after the PyTorch
+   prologue, exact against incremental trig on each, and on 12-tick v0 and
+   v2 contact drives;
 5. the main paths at 4096 envs and 180/60, 200 steps of random actions each
    through ``make(...)`` with the default device: v0 fused, v0 and v2 staged
    (``backend='pallas'``), v2 and v3 fused; each step a CUDA graph replay
@@ -101,7 +105,8 @@ Phases (each raises on failure; the script exits non-zero on any):
    ``torchrun --nproc_per_node 1 -m gym_puzzles_tpu_torch.train.cli
    --distributed``;
 14. the JAX package's variant policies (v2 r4, v2 83 r5, v3 r4, Heavy-v2
-   r4, Heavy-v0 H2 r5; files in ``gym_puzzles_tpu_torch/policies/``) through
+   r4, Heavy-v0 H2 r5; files in ``gym_puzzles_tpu_torch/policies/``) and
+   the policies the port trained by the JAX recipes (``PORT_POLICIES``) through
    ``check_policy`` at their registered episode limits (2000, 1500 for v3,
    3000 for Heavy-v0), 4096 episodes each: card against CPU actions, one
    kernel-A launch per env step, the mean return inside three standard
@@ -123,7 +128,8 @@ Phases (each raises on failure; the script exits non-zero on any):
    differ), launches exact (each graph holds ``frameskip`` launches; two per
    tick, replay and eager): 200 steps at 4096 envs and 180/60 of v0,
    Heavy-v0, v2 and v3 on both ticks (v0 fused reseeded by ``reset(seed=1)``
-   after the capture, v2 with ``update_goal`` changed half way), Heavy-v0 at
+   after the capture, v2 with ``update_goal`` changed half way) and of v3
+   with five heavy agents fused, Heavy-v0 at
    16384 envs, a v0 and a v2 graph stepped in turn (each replay on its own
    world table), the image env at 256 envs and 60/20 (frames), and two
    chained ``PPO.rollout`` replays at the v0 and pixel recipes against
@@ -145,7 +151,16 @@ Phases (each raises on failure; the script exits non-zero on any):
    recipe both eager); and the v0 learner traced
    (``profile_step.profile_learner``): kernels run, host launch calls,
    device ms and busy share per update, graph against eager;
-6. (run after 7-17) both kernels' times per variant, beside the mean
+18. (run after 17) the v2 recipe's two legs as the train CLI runs them,
+   ``PPO.train_step`` against ``PPO.train_step_eager`` side by side from one
+   ``init_state``: 12 updates with the goal schedule over leg 1's 114, a
+   save of each way, a restore of each into a fresh learner at leg 2's
+   config with ``cli.leg_overrides`` (``ent_coef`` 0.002, the schedule
+   restarting over leg 2's 247 updates; graphs captured anew), 12 more
+   updates: 0 differing elements in every update's state and metrics and
+   in the restored states, 24 x 64 kernel-A launches each way, each graph
+   captured once per learner, the schedule the CLI's;
+6. (run after 7-18) both kernels' times per variant, beside the mean
    and warp-max live pairs per env of the inputs timed (the sweeps visit
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
@@ -187,7 +202,7 @@ from gym_puzzles_tpu_torch.parallel import train_state_specs
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
-from gym_puzzles_tpu_torch.train.ppo import PPO, PhaseTimer, PPOConfig, _untimed
+from gym_puzzles_tpu_torch.train.ppo import PPO, HParams, PhaseTimer, PPOConfig, _untimed
 from gym_puzzles_tpu_torch.utils import cuda_graph
 
 ENV_ID = "MultiRobotPuzzle-v0"
@@ -211,6 +226,10 @@ OPS_SOLVE_BODY = 40  # the solve kernel alone: island labels and integration per
 
 VARIANTS = ("MultiRobotPuzzle-v0", "MultiRobotPuzzleHeavy-v0", "MultiRobotPuzzle-v2",
             "MultiRobotPuzzle-v3")
+# v3 built with five heavy agents (``api/registry.py::_logic``'s num_agents and
+# heavy): 10 bodies, 48 pairs, kernel A's large size class; held in phases 3,
+# 4 and 16
+V3_ID, HEAVY5 = "MultiRobotPuzzle-v3", dict(num_agents=5, heavy=True)
 # incremental against exact position-pass trig: 10x what the JAX package
 # records for its kernels after 12 contact steps (4.8e-7 m, 3.3e-6 rad)
 TRIG_LIMITS = dict(pos=4.8e-6, angle=3.3e-5, impulse=1e-6)
@@ -232,6 +251,9 @@ SPAWN_LIMITS = dict(no_contact_max=1e-4, median=1e-3, max=1e-4, angle=2e-3, impu
 # last-bit difference can flip it: at most this share of the envs in contact
 # (measured: no env differs)
 SOLVED_FLAGS_SHARE = 0.001
+# check_spawns_reach: copies of each env beyond SPAWN_LIMITS['max'] re-solved
+# from inputs moved by float32 rounding
+REACH_COPIES = 16
 
 ROOT = Path(__file__).resolve().parent
 # phase 7: the JAX package's full-width v0 recipe (docs/BENCHMARKS.md:187)
@@ -320,6 +342,21 @@ VARIANT_POLICIES = (  # (file, env id, the JAX records, hold the threshold)
     ("MultiRobotPuzzleHeavy-v0_H2_r5.npz", "MultiRobotPuzzleHeavy-v0",
      [f"eval_hv0_H2_r5_seed{k}.json" for k in range(3)], False),
 )
+# and the policies the port trained itself on the H100 by the JAX recipes
+# (docs/benchmarks/torch_h100_ppo_recipes.sh and torch_h100_ppo_v0.sh; their
+# records docs/benchmarks/torch_h100_{v0g,v2,hv2,v3}_*), each exported from its
+# run's final checkpoint by train/export.py and held to the band around the
+# JAX record of its recipe.  The Heavy-v2 run's file
+# (MultiRobotPuzzleHeavy-v2_torch_h100.npz) missed its band at 384 episodes
+# (ROADMAP.md, Queue 3) and is not held here.
+PORT_POLICIES = (
+    ("MultiRobotPuzzle-v0_torch_h100.npz", "MultiRobotPuzzle-v0",
+     [f"eval_v0_r4_seed{k}_fused.json" for k in range(3)], True),
+    ("MultiRobotPuzzle-v2_torch_h100.npz", "MultiRobotPuzzle-v2",
+     [f"eval_v2_r4_seed{k}_fused.json" for k in range(3)], True),
+    ("MultiRobotPuzzle-v3_torch_h100.npz", "MultiRobotPuzzle-v3",
+     [f"eval_v3_r4_seed{k}_fused.json" for k in range(3)], True),
+)
 # phase 15: PPO on each variant's recipe at full width, from the config
 # headers of the JAX package's runs (docs/benchmarks/ppo_*.jsonl line 1);
 # each run: (name, PPOConfig, curriculum run length in updates, warm-start
@@ -348,6 +385,14 @@ LEARNER_STOP_KL = 5e-4
 RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
 RATE_MODES = {"graphs": (True, True), "rollout graph, eager learner": (True, False),
               "eager": (False, False)}
+# phase 18: the v2 recipe's two legs as the CLI runs them, graph against eager
+# side by side: CHAIN_UPDATES updates of leg 1 (the goal schedule over its
+# updates), a save, a restore into fresh learners with leg 2's overrides
+# (cli.leg_overrides), CHAIN_UPDATES updates of leg 2 (the schedule
+# restarting over its updates); (--total_timesteps, overrides) of each leg,
+# from ppo_v2_leg{1,2}_r4.jsonl
+CHAIN_UPDATES = 12
+CHAIN_LEGS = ((30_000_000, {}), (65_000_000, dict(ent_coef=0.002)))
 
 
 def card() -> str:
@@ -516,19 +561,25 @@ def check_push_world(dev, tick=None, name="push world") -> dict:
     return d
 
 
-def spawn_tick(dev, E, seed, env_id=ENV_ID):
+def world_name(env_id, make_kw=None) -> str:
+    """``env_id`` and the constructor kwargs of its world, if any."""
+    return env_id + (f" ({', '.join(f'{k}={v}' for k, v in make_kw.items())})" if make_kw else "")
+
+
+def spawn_tick(dev, E, seed, env_id=ENV_ID, make_kw=None):
     """(table, contacts, bodies, force, torque, wake) of E fresh spawns
-    after random controls: one tick's inputs."""
-    logic = _logic(env_id)
+    after random controls: one tick's inputs.  ``make_kw``: the world's
+    constructor kwargs (v3's ``num_agents`` and ``heavy``)."""
+    logic = _logic(env_id, **(make_kw or {}))
     gen = torch.Generator(device=dev).manual_seed(seed)
     state, _obs = logic.reset_fast(gen, E, logic.default_params())
     act = torch.rand((logic.cfg.act_dim, E), generator=gen, device=dev) * 2 - 1
     return (logic.layout.table, state.contacts) + logic._control(state, act)
 
 
-def spawn_diffs(name, got, want, in_contact) -> dict:
-    """Differences over a batch of spawns, held to ``SPAWN_LIMITS``; ``got``
-    and ``want`` are (pos, angle, normal impulse).  ``max`` is the largest
+def spawn_diffs(name, got, want, in_contact, limits=SPAWN_LIMITS) -> dict:
+    """Differences over a batch of spawns, held to ``limits``; ``got`` and
+    ``want`` are (pos, angle, normal impulse).  ``max`` is the largest
     position difference over all envs, so it reads the envs in contact."""
     d = (got[0] - want[0]).abs().amax(dim=(0, 1))
     free = ~in_contact
@@ -536,7 +587,7 @@ def spawn_diffs(name, got, want, in_contact) -> dict:
                median=float(d.median()), max=float(d.max()),
                angle=maxdiff(got[1], want[1]), impulse=maxdiff(got[2], want[2]),
                impulse_scale=float(want[2].abs().max()))
-    report(f"{name} ({int(in_contact.sum())} envs in contact)", out, SPAWN_LIMITS)
+    report(f"{name} ({int(in_contact.sum())} envs in contact)", out, limits)
     return out
 
 
@@ -555,6 +606,85 @@ def check_spawns(dev, E, seed, env_id=ENV_ID, vel_iters=VI,
     name = f"fused, {env_id} spawns E={E} 1 tick {vel_iters}/{pos_iters}"
     out = spawn_diffs(name, (bk.pos, bk.angle, ck.normal_impulse),
                       (bp.pos, bp.angle, cp.normal_impulse), cp.touching.any(dim=0))
+    if not torch.equal(bk.awake, bp.awake):
+        raise AssertionError(f"{name}: awake flags differ")
+    if not all(bool(torch.isfinite(x).all()) for x in (bk.pos, bk.vel, ck.normal_impulse)):
+        raise AssertionError(f"{name}: kernel output not finite")
+    return out, plain_ms
+
+
+def f64(x):
+    """A tree of tensors with its floating leaves in float64."""
+    return tree_map(lambda t: t.double() if t.is_floating_point() else t, x)
+
+
+def check_spawns_reach(dev, E, seed, env_id, make_kw=None) -> tuple[dict, float]:
+    """Kernel A on one tick of E random spawns at 180/60 (exact trig) against
+    ``world.step`` in float32, held to ``SPAWN_LIMITS`` but for the largest
+    position difference; then each env beyond ``SPAWN_LIMITS['max']`` is
+    solved again by both from ``REACH_COPIES`` copies of its inputs, every
+    body position and angle moved by float32's epsilon times its magnitude
+    (one or two units in the last place, signs at random; the first copy
+    unmoved).  The kernel's outcome must be within ``SPAWN_LIMITS['max']``
+    of an outcome ``world.step`` reaches from some copy, and ``world.step``'s
+    within it of one the kernel reaches (``reach``): a spawn whose deep
+    overlaps float32 resolves one way or another by its rounding is held to
+    the outcomes float32 itself gives it (float64 ``world.step`` may keep to
+    one of them: ``docs/benchmarks/torch_h100_heavy5_spawns.py``).  Prints,
+    per such env, how many copies of each solve land on the kernel's outcome
+    and on ``world.step``'s.  Returns (differences, plain ms)."""
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id, make_kw)
+    args = (table, bodies, contacts, force, torque, wake, DT, VI, PI)
+    bk, ck, _ = step_cuda.step_fused(*args, incremental_trig=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp, cp, _ = world.step(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    name = (f"fused, {world_name(env_id, make_kw)} spawns E={E} 1 tick {VI}/{PI} against "
+            f"world.step in float32")
+    limit = SPAWN_LIMITS["max"]
+    out = spawn_diffs(name, (bk.pos, bk.angle, ck.normal_impulse),
+                      (bp.pos, bp.angle, cp.normal_impulse), cp.touching.any(dim=0),
+                      {k: v for k, v in SPAWN_LIMITS.items() if k != "max"})
+    d = (bk.pos - bp.pos).abs().amax(dim=(0, 1))
+    flagged = (d > limit).nonzero().flatten()
+    F, K = flagged.numel(), REACH_COPIES
+    out["reach"] = 0.0
+    if F:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pick = lambda x: tree_map(  # noqa: E731
+            lambda t: t[..., flagged].repeat_interleave(K, dim=-1).contiguous(), x)
+        b, c, f, tq, w = map(pick, (bodies, contacts, force, torque, wake))
+        later = ((torch.arange(F * K, device=dev) % K) > 0).float()
+
+        def moved(t):
+            sign = torch.randint(-1, 2, t.shape, generator=gen, device=dev).float()
+            return t + torch.finfo(torch.float32).eps * t.abs() * sign * later
+
+        b = b.replace(pos=moved(b.pos), angle=moved(b.angle))
+        copies = lambda pos: pos.reshape(pos.shape[:2] + (F, K))  # noqa: E731
+        kern = copies(step_cuda.step_fused(table, b, c, f, tq, w, DT, VI, PI,
+                                           incremental_trig=False)[0].pos)
+        plain = copies(world.step(table, b, c, f, tq, w, DT, VI, PI)[0].pos)
+        dist = lambda own, pos: (own[..., flagged, None].double()  # noqa: E731
+                                 - pos.double()).abs().amax(dim=(0, 1))
+        k_own, p_own = bk.pos, bp.pos
+        k_to_p = dist(k_own, plain).min(dim=-1).values
+        p_to_k = dist(p_own, kern).min(dim=-1).values
+        for i, e in enumerate(flagged.tolist()):
+            lands = {who: (int((dist(k_own, pos)[i] <= limit).sum()),
+                           int((dist(p_own, pos)[i] <= limit).sum()))
+                     for who, pos in (("kernel", kern), ("world.step", plain))}
+            print(f"    env {e}: kernel - world.step {float(d[e]):.3e} m; of {K} copies moved "
+                  f"by float32 rounding (the first unmoved), on the kernel's outcome / on "
+                  f"world.step's: " + ", ".join(f"{who} {a} / {b_}" for who, (a, b_)
+                                                 in lands.items())
+                  + f"; nearest world.step copy to the kernel {float(k_to_p[i]):.3e} m, "
+                  f"nearest kernel copy to world.step {float(p_to_k[i]):.3e} m", flush=True)
+        out["reach"] = float(torch.maximum(k_to_p, p_to_k).max())
+    report(f"{name}: {F} envs beyond {limit:g} re-solved from {K} copies moved by float32 "
+           f"rounding", {"reach": out["reach"]}, {"reach": limit})
     if not torch.equal(bk.awake, bp.awake):
         raise AssertionError(f"{name}: awake flags differ")
     if not all(bool(torch.isfinite(x).all()) for x in (bk.pos, bk.vel, ck.normal_impulse)):
@@ -583,7 +713,6 @@ def check_spawns_f64(dev, E, seed, env_id) -> tuple[dict, float]:
     bp, cp, _ = world.step(*args)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    f64 = lambda x: tree_map(lambda t: t.double() if t.is_floating_point() else t, x)  # noqa
     b64 = world.step(table, f64(bodies), f64(contacts), f64(force), f64(torque), wake, DT,
                      VI, PI)[0]
     env_max = lambda a, b: (a.double() - b.double()).abs().amax(dim=(0, 1))  # noqa: E731
@@ -623,22 +752,22 @@ def check_spawns_f64(dev, E, seed, env_id) -> tuple[dict, float]:
     return out, plain_ms
 
 
-def spawn_solve_args(dev, E, seed, env_id, vi=VI, pi=PI):
+def spawn_solve_args(dev, E, seed, env_id, vi=VI, pi=PI, make_kw=None):
     """(table, solve args) of E spawns one tick in: the first tick goes
     through the fused kernel, so the second tick's constraints carry
     impulses to warm start from."""
-    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id)
+    table, contacts, bodies, force, torque, wake = spawn_tick(dev, E, seed, env_id, make_kw)
     bodies, contacts, _ = step_cuda.step_fused(table, bodies, contacts, force, torque, wake,
                                                DT, vi, pi)
     solve_args, _carry = world.before_solve(table, bodies, contacts, force, torque, wake, DT)
     return table, solve_args
 
 
-def check_solve_kernel(dev, env_id, E, seed, vi=VI, pi=PI) -> tuple[dict, float]:
+def check_solve_kernel(dev, env_id, E, seed, vi=VI, pi=PI, make_kw=None) -> tuple[dict, float]:
     """The contact-solve kernel against its plain version on the constraints
     of E spawns after the PyTorch prologue: exact trig within the spawn
     limits, incremental against exact.  Returns (differences, plain ms)."""
-    table, solve_args = spawn_solve_args(dev, E, seed, env_id, vi, pi)
+    table, solve_args = spawn_solve_args(dev, E, seed, env_id, vi, pi, make_kw)
     vc = solve_args[0]
     exact = solver_cuda.solve_contacts(table, *solve_args, DT, vi, pi, incremental_trig=False)
     torch.cuda.synchronize()
@@ -649,7 +778,7 @@ def check_solve_kernel(dev, env_id, E, seed, vi=VI, pi=PI) -> tuple[dict, float]
     in_contact = (vc.solve & (vc.count > 0)).any(dim=0)
     if not bool(in_contact.any()) or not bool((vc.normal_impulse != 0).any()):
         raise AssertionError(f"solve, {env_id}: no contact or nothing to warm start")
-    name = f"solve, {env_id} spawns E={E} {vi}/{pi}"
+    name = f"solve, {world_name(env_id, make_kw)} spawns E={E} {vi}/{pi}"
     out = spawn_diffs(name, exact[2:5], plain[2:5], in_contact)
     flags = (exact[6] != plain[6]).any(dim=0)
     allowed = int(SOLVED_FLAGS_SHARE * int(in_contact.sum()))
@@ -1090,12 +1219,13 @@ def record_band(records, n) -> tuple:
 
 def run_variant_evals(card_line) -> int:
     """Phase 14: each of the JAX package's variant policies
-    (``VARIANT_POLICIES``) through :func:`check_policy` at its registered
-    episode limit: the mean return inside the band around the JAX record
-    (:func:`record_band`), and above the registered ``reward_threshold``
-    where the JAX package met it.  Returns the fused kernel's launches."""
+    (``VARIANT_POLICIES``) and of the port's own (``PORT_POLICIES``) through
+    :func:`check_policy` at its registered episode limit: the mean return
+    inside the band around the JAX record (:func:`record_band`), and above
+    the registered ``reward_threshold`` where the JAX package met it.
+    Returns the fused kernel's launches."""
     total = 0
-    for npz, env_id, records, gate_threshold in VARIANT_POLICIES:
+    for npz, env_id, records, gate_threshold in VARIANT_POLICIES + PORT_POLICIES:
         max_steps = VARIANT_CFGS[env_id].max_episode_steps
         out = check_policy(POLICY_DIR / npz, env_id, VARIANT_EVAL_EPISODES, max_steps,
                            card_line)
@@ -1980,8 +2110,9 @@ def replay_against_eager(dev, card_line, pairs, steps, what, backend, change=Non
     return n_bad
 
 
-def graphed_pair(env_id, backend, E=NUM_ENVS):
-    return make(env_id, num_envs=E, backend=backend), make(env_id, num_envs=E, backend=backend)
+def graphed_pair(env_id, backend, E=NUM_ENVS, make_kw=None):
+    kw = dict(num_envs=E, backend=backend, **(make_kw or {}))
+    return make(env_id, **kw), make(env_id, **kw)
 
 
 ROLLOUT_FIELDS = ("normalizer", "vstate", "last_obs", "ep_return", "ep_len", "stat_return",
@@ -2187,6 +2318,93 @@ def run_learner_graphs(card_line) -> dict:
                 launches=sum(c["launches"]["step_fused"] for c in checks.values()))
 
 
+def run_chain(card_line) -> dict:
+    """Phase 18: the v2 recipe (:func:`v2_config`) run two ways side by side
+    from one ``init_state``, ``PPO.train_step`` (both CUDA graphs) and
+    ``PPO.train_step_eager``, each update preceded by ``apply_curriculum``
+    over the leg's updates as ``PPO.learn`` runs it (``CHAIN_LEGS``):
+    ``CHAIN_UPDATES`` updates, ``checkpoint.save`` of each way, a restore of
+    each into a fresh ``PPO`` at leg 2's config with the CLI's resume
+    overrides (``cli.leg_overrides``; new graphs, captured anew), then
+    ``CHAIN_UPDATES`` more.  Every update's state (params, Adam state,
+    normalizer, env state, generators, env params, hparams) and metrics, and
+    both restored states, equal between the ways in every element; exactly
+    n_steps launches of kernel A per update on each way (counted around
+    each way's updates) and none of kernel B; each graph captured once per
+    learner.  Returns kernel A's launches over both ways."""
+    base = v2_config()
+    per_update = base.n_steps * base.n_envs
+    ways = {"graph": "train_step", "eager": "train_step_eager"}
+    launches = {way: {"step_fused": 0, "solve_contacts": 0} for way in ways}
+    walls = {way: 0.0 for way in ways}
+    bad, log, captures = 0, [], []
+    cb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cb.BUILD_DIR) as tmp:
+        learners, states = {}, {}
+        for leg, (total, overrides) in enumerate(CHAIN_LEGS):
+            cfg = dataclasses.replace(base, total_timesteps=total, **overrides)
+            n_updates = max(1, total // per_update)
+            for way in ways:
+                learners[way] = None  # the old learner's graphs go before new ones are made
+                learner = PPO(cfg)
+                on_card(learner, f"chain, leg {leg + 1}")
+                ts = learner.init_state()
+                if leg:
+                    ts = cli.leg_overrides(learner, ckpt.restore(f"{tmp}/{way}", ts))
+                learners[way], states[way] = learner, ts
+            bad = bad + mismatches(ckpt.to_tree(states["graph"]), ckpt.to_tree(states["eager"]))
+            for u in range(n_updates)[:CHAIN_UPDATES]:
+                out = {}
+                for way, method in ways.items():
+                    learner = learners[way]
+                    ts = learner.apply_curriculum(states[way], u, n_updates)
+                    before = launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ts, metrics = getattr(learner, method)(ts)
+                    torch.cuda.synchronize()
+                    walls[way] += time.perf_counter() - t0
+                    for name, n in launch_counts().items():
+                        launches[way][name] += n - before[name]
+                    states[way], out[way] = ts, (ckpt.to_tree(ts), metrics)
+                bad = bad + mismatches(out["graph"], out["eager"])
+                m, ts, p = out["graph"][1], states["graph"], learners["graph"].env_params
+                # the CLI's schedule: the goal epsilon over this leg's updates, at this
+                # leg's ent_coef
+                want = (p.update_goal(u, n_updates, p.scaled_epsilon).scaled_epsilon,
+                        HParams.from_config(cfg).ent_coef)
+                log.append((leg + 1, u, ts.env_params.scaled_epsilon, ts.hparams.ent_coef,
+                            float(m["ep_rew_mean"]), float(m["approx_kl"]),
+                            bool(m["kl_stopped"]), int(ts.opt_state.count),
+                            (ts.env_params.scaled_epsilon, ts.hparams.ent_coef) == want))
+            captures.append(learners["graph"].graph_captures)
+            if leg == 0:
+                for way in ways:
+                    ckpt.save(f"{tmp}/{way}", states[way], ckpt.step_count(states[way].timesteps))
+    n_bad = int(bad)
+    n = len(CHAIN_LEGS) * CHAIN_UPDATES
+    want = {"step_fused": n * base.n_steps, "solve_contacts": 0}
+    for leg, u, eps, ent, ret, kl, stop, count, _ok in log:
+        print(f"  leg {leg} update {u}: scaled_epsilon {eps:.6g}, ent_coef {ent:.6g}, ep_rew_mean "
+              f"{ret:.6g}, approx_kl {kl:.6g}, kl_stopped {stop}, Adam count {count}", flush=True)
+    print(f"  {n} updates of the v2 recipe each way, {CHAIN_UPDATES} per leg across a save and a "
+          f"restore into fresh learners with leg 2's overrides: {n_bad} elements differ between "
+          f"graph and eager (state, generators, metrics, the restored states); launches "
+          f"{launches}; graph captures per leg {captures}; {walls['graph']:.2f} s graph (captures "
+          f"included) against {walls['eager']:.2f} s eager: "
+          f"{n * per_update / walls['graph']:,.0f} against {n * per_update / walls['eager']:,.0f}"
+          f" env-steps/s  [{card_line}]", flush=True)
+    if n_bad:
+        raise AssertionError(f"chain: graph and eager differ in {n_bad} elements")
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"chain: launches {launches}, expected {want} each way")
+    if any(c != {"rollout": 1, "learner": 1} for c in captures):
+        raise AssertionError(f"chain: graphs captured {captures}, expected once per learner")
+    if not all(entry[-1] for entry in log):
+        raise AssertionError("chain: scaled_epsilon or ent_coef off the CLI's schedule")
+    return launches["graph"]["step_fused"] + launches["eager"]["step_fused"]
+
+
 def run_graphs(dev, card_line) -> dict:
     """Phase 16 (constants ``GRAPH_*``): each CUDA graph of the main path
     against its eager body, bit for bit, launches exact; then graph against
@@ -2209,6 +2427,9 @@ def run_graphs(dev, card_line) -> dict:
                 f", update_goal before step {GRAPH_CHANGE_AT}" if "change" in kw else "")
             replay_against_eager(dev, card_line, [graphed_pair(env_id, backend)], MAIN_STEPS,
                                  what, backend, **kw)
+    replay_against_eager(dev, card_line, [graphed_pair(V3_ID, "fused", make_kw=HEAVY5)],
+                         MAIN_STEPS, f"{world_name(V3_ID, HEAVY5)} fused, {NUM_ENVS} envs "
+                         f"{VI}/{PI}", "fused")
     replay_against_eager(dev, card_line, [graphed_pair(HV0_ID, "fused", HV0_ENVS)],
                          GRAPH_SHORT_STEPS, f"{HV0_ID} fused, {HV0_ENVS} envs", "fused")
     replay_against_eager(dev, card_line, [graphed_pair(ENV_ID, "fused"), graphed_pair(v2, "fused")],
@@ -2298,6 +2519,11 @@ def main() -> int:
     check_spawns(dev, 1000, seed=1)
     plain_variants = {env_id: check_spawns(dev, NUM_ENVS, seed=2, env_id=env_id)[1]
                       for env_id in VARIANTS[1:]}
+    # five heavy agents spawn in deep overlaps, one of which float32 resolves one
+    # way or another by its rounding while float64 keeps to one (measured on an
+    # H100: the kernel 5.98e-4 m from world.step there): held to float32's reach
+    heavy5_diff, heavy5_plain_ms = check_spawns_reach(dev, NUM_ENVS, seed=2, env_id=V3_ID,
+                                                      make_kw=HEAVY5)
     check_trig(dev)
 
     print("== 4. contact-solve kernel against plain on the card", flush=True)
@@ -2306,6 +2532,8 @@ def main() -> int:
     check_solve_kernel(dev, ENV_ID, 1000, seed=1)
     _diff, solve_plain_v2_ms = check_solve_kernel(dev, "MultiRobotPuzzle-v2", NUM_ENVS,
                                                   seed=2)
+    heavy5_solve_diff, heavy5_solve_plain_ms = check_solve_kernel(dev, V3_ID, NUM_ENVS, seed=2,
+                                                                  make_kw=HEAVY5)
     check_trig(dev, ENV_ID, staged_tick, "staged")
     check_trig(dev, "MultiRobotPuzzle-v2", staged_tick, "staged")
     check_trig(dev, "MultiRobotPuzzle-v2", fused_tick, "fused")
@@ -2399,6 +2627,12 @@ def main() -> int:
     learner = run_learner_graphs(card_line)
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    print("== 18. the v2 recipe's two legs, graph against eager, across a save and a restore "
+          "into fresh learners", flush=True)
+    t_phase = time.perf_counter()
+    chain_launches = run_chain(card_line)
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     print("== 6. kernels", flush=True)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
@@ -2433,6 +2667,9 @@ def main() -> int:
              variant_train_launches=variant_train["step_fused"],
              learner_check_launches=learner["launches"],
              learner_graph_launches=learner["held"].get("step_fused", 0),
+             chain_launches=chain_launches,
+             v3_heavy5_max_abs_err=heavy5_diff["max"], v3_heavy5_reach=heavy5_diff["reach"],
+             v3_heavy5_plain_ms=heavy5_plain_ms,
              hv0_16k_ms=hv0["fused_ms"], hv0_16k_bound_ms=hv0["fused_bound"]["ms"],
              hv0_16k_bound_by=hv0["fused_bound"]["by"], hv0_16k_plain_ms=hv0_plain_ms,
              hv0_16k_max_abs_err=hv0_diff["max"],
@@ -2445,6 +2682,8 @@ def main() -> int:
              launches=staged_run["launches"], train_launches=variant_train["solve_contacts"],
              learner_graph_launches=learner["held"].get("solve_contacts", 0),
              max_abs_err=solve_diff["max"],
+             v3_heavy5_max_abs_err=heavy5_solve_diff["max"],
+             v3_heavy5_plain_ms=heavy5_solve_plain_ms,
              ms=v0["solve_ms"], plain_ms=solve_plain_ms,
              bound_ms=v0["solve_bound"]["ms"], bound_by=v0["solve_bound"]["by"]),
     ]}), flush=True)

@@ -1,0 +1,176 @@
+"""Summarize the port's runs of the JAX package's flat recipes on the GPU
+(``torch_h100_ppo_recipes.sh`` and ``torch_h100_ppo_v0.sh``; their records
+``docs/benchmarks/torch_h100_{v0g,v2,hv2,v3}_*``) against the JAX package's
+records of the same recipes.  Run from the repo root (the CPU will do):
+
+    python docs/benchmarks/torch_h100_recipes_report.py [--curves RUN ...]
+
+For each run: the card line, each leg's wall seconds, the trained steps the
+eval rows record, the pooled mean return of the 3 x 128 eval episodes against
+the band around the JAX records (``chip_smoke.record_band(records, 384)``),
+and the whole run's env-steps/s, over the legs' wall time (process start,
+kernel build and graph capture included) and over the updates alone (the
+trainer's own per-update rates; the first update of each leg includes the
+graphs' capture), kernel A's launches in the rollout replays (n_steps per
+update), and the config fields in which each leg differs from the
+JAX run's header.  ``--curves`` adds, for the runs named, the
+mean ``ep_rew_mean`` / ``entropy`` / ``approx_kl`` / ``completions`` per
+tenth of each leg beside the JAX run's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import record_band  # noqa: E402
+
+RECORDS = ROOT / "docs" / "benchmarks"
+# run -> (the JAX records of its recipe's policy, the JAX run's leg logs, the steps of the run)
+RUNS = {
+    "v0g": ([f"eval_v0_r4_seed{k}_fused.json" for k in range(3)],
+            ["ppo_v0_leg1_r4.jsonl", "ppo_v0_leg2_r4.jsonl"], 179_830_784),
+    "v2": ([f"eval_v2_r4_seed{k}_fused.json" for k in range(3)],
+           ["ppo_v2_leg1_r4.jsonl", "ppo_v2_leg2_r4.jsonl"], 94_633_984),
+    "hv2": ([f"eval_hv2_r4_seed{k}_fused.json" for k in range(3)],
+            ["ppo_hv2_leg1_r4.jsonl", "ppo_hv2_leg2_r4.jsonl"], 94_633_984),
+    "v3": ([f"eval_v3_r4_seed{k}_fused.json" for k in range(3)],
+           ["ppo_v3_retrain_r4.jsonl"], 119_799_808),
+}
+# the v0 run of the eager learner, kept under its own names
+RUNS["v0 eager"] = RUNS["v0g"]
+NAMES = {"v0 eager": ("torch_h100_ppo_v0_leg{}.jsonl", "torch_h100_eval_v0_seed{}.json",
+                      "torch_h100_ppo_v0_times.txt")}
+CURVE_KEYS = ("ep_rew_mean", "entropy", "approx_kl", "completions")
+
+
+def paths(run: str) -> tuple:
+    """(leg log, eval row, times) of a run's records; the first two take the
+    leg or the seed."""
+    leg, row, times = NAMES.get(run, (f"torch_h100_{run}_leg{{}}.jsonl",
+                                      f"torch_h100_{run}_eval_seed{{}}.json",
+                                      f"torch_h100_{run}_times.txt"))
+    return ((lambda k: RECORDS / leg.format(k)), (lambda k: RECORDS / row.format(k)),
+            RECORDS / times)
+
+
+def updates(path: Path) -> list[dict]:
+    """The per-update JSON lines of a trainer's log."""
+    rows = []
+    for line in path.read_text().splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            if "update" in row:
+                rows.append(row)
+    return rows
+
+
+def config(path: Path) -> dict:
+    """The fields of a trainer log's ``config: PPOConfig(...)`` line, as text."""
+    body = path.read_text().splitlines()[0].removeprefix("config: PPOConfig(")[:-1]
+    return dict(re.findall(r"(\w+)=('[^']*'|\([^)]*\)|[^,]+)", body))
+
+
+def config_diff(run: str) -> list:
+    """Per leg, the config fields in which the run differs from the JAX
+    run's header (a field the older header lacks counts only when it is not
+    None)."""
+    out = []
+    for k, jax_leg in enumerate(RUNS[run][1]):
+        port = config(paths(run)[0](k + 1))
+        ref = config(RECORDS / jax_leg)
+        out.append({f: (ref.get(f), port.get(f)) for f in sorted(set(port) | set(ref))
+                    if ref.get(f, "None") != port.get(f)})
+    return out
+
+
+def summary(run: str) -> dict:
+    records, jax_legs, steps = RUNS[run]
+    leg_path, row_path, times_path = paths(run)
+    rows = [json.loads(row_path(k).read_text()) for k in range(3)]
+    returns = np.concatenate([r["returns"] for r in rows]).astype(np.float64)
+    mean, _sd, _n, band = record_band(records, len(returns))
+    lines = times_path.read_text().splitlines()
+    walls = dict(line.split() for line in lines[1:])
+    legs = [updates(leg_path(k + 1)) for k in range(len(jax_legs))]
+    leg_walls = [float(walls[f"leg{k + 1}"]) for k in range(len(legs))]
+    per_update = [u for leg in legs for u in leg]
+    trained = legs[-1][-1]["timesteps"]
+    # an update's steps over its logged rate: the wall time between two logs
+    step = per_update[0]["timesteps"]
+    update_s = sum(step / u["steps_per_s"] for u in per_update)
+    leg_update_s = [[step / u["steps_per_s"] for u in leg] for leg in legs]
+    return dict(card=lines[0], leg_walls=leg_walls,
+                eval_walls=[float(walls[f"eval_seed{k}"]) for k in range(3)],
+                trained=[r["trained_timesteps"] for r in rows], logged_steps=trained,
+                steps_ok=trained == steps and all(r["trained_timesteps"] == steps for r in rows),
+                pooled=float(returns.mean()), jax_mean=mean, band=band,
+                inside=band[0] <= returns.mean() <= band[1],
+                seed_means=[r["mean_return"] for r in rows],
+                completions=[r["completions"] for r in rows],
+                updates=len(per_update), run_rate=trained / sum(leg_walls),
+                # each update replays the rollout's graph, which holds n_steps launches
+                launches=len(per_update) * int(config(leg_path(1))["n_steps"]),
+                update_rate=trained / update_s,
+                first_s=[leg[0] for leg in leg_update_s],
+                median_s=float(np.median([t for leg in leg_update_s for t in leg[1:]])),
+                start_s=[w - sum(leg) for w, leg in zip(leg_walls, leg_update_s)])
+
+
+def curves(run: str, parts: int = 10):
+    _records, jax_legs, _steps = RUNS[run]
+    for k, jax_leg in enumerate(jax_legs):
+        port = updates(paths(run)[0](k + 1))
+        ref = updates(RECORDS / jax_leg)
+        n = len(port)
+        print(f"\n{run} leg {k + 1} ({n} updates; JAX {len(ref)}): mean per tenth, port | JAX")
+        print("| updates | " + " | ".join(CURVE_KEYS) + " |")
+        print("|---|" + "---|" * len(CURVE_KEYS))
+        for lo in range(0, n, -(-n // parts)):
+            hi = min(n, lo - (-n // parts))
+
+            def avg(rows, key):
+                v = np.array([r[key] for r in rows[lo:hi]], dtype=np.float64)
+                return float(np.nanmean(v)) if np.isfinite(v).any() else float("nan")
+
+            cells = [f"{avg(port, key):,.4g} \\| {avg(ref, key):,.4g}" for key in CURVE_KEYS]
+            print(f"| {lo}-{hi - 1} | " + " | ".join(cells) + " |")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--curves", nargs="*", default=[], choices=list(RUNS))
+    args = p.parse_args(argv)
+    for run in RUNS:
+        if not paths(run)[2].exists():
+            print(f"{run}: no records")
+            continue
+        s = summary(run)
+        print(f"{run}: [{s['card']}] legs {', '.join(f'{w:.1f}' for w in s['leg_walls'])} s, "
+              f"evals {', '.join(f'{w:.1f}' for w in s['eval_walls'])} s; {s['updates']} updates, "
+              f"{s['logged_steps']:,} steps (eval rows {s['trained']}: "
+              f"{'' if s['steps_ok'] else 'NOT '}as the recipe says); pooled mean "
+              f"{s['pooled']:,.1f} (seeds {', '.join(f'{m:,.1f}' for m in s['seed_means'])}; "
+              f"completions {s['completions']}) against the band "
+              f"[{s['band'][0]:,.1f}, {s['band'][1]:,.1f}] around {s['jax_mean']:,.1f}: "
+              f"{'inside' if s['inside'] else 'OUTSIDE'}; env-steps/s {s['run_rate']:,.0f} over "
+              f"the legs' wall time, {s['update_rate']:,.0f} over the updates; kernel-A "
+              f"launches in the rollout replays {s['launches']:,}; an update past the first "
+              f"of its leg {s['median_s']:.4f} s (median), the first "
+              f"{', '.join(f'{t:.2f}' for t in s['first_s'])} s, each leg's time outside its "
+              f"updates {', '.join(f'{t:.1f}' for t in s['start_s'])} s; config fields "
+              f"unlike the JAX run's, per leg: {config_diff(run)}")
+    for run in args.curves:
+        curves(run)
+
+
+if __name__ == "__main__":
+    main()

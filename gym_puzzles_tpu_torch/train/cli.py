@@ -125,9 +125,23 @@ def overrides_from_args(args) -> dict:
     return overrides
 
 
+def leg_overrides(learner, state):
+    """A restored TrainState made ready for this run (``--resume``, as the
+    JAX CLI does it): this run's hyperparameters (the learner's config:
+    ``ent_coef``, ``learning_rate``, ``gamma`` in the normalizer too, ...)
+    and reward params (the learner's, so that a curriculum restarts over this
+    run's updates) replace the checkpoint's; its params, Adam state,
+    normalizer moments, env batch and generators carry over."""
+    from gym_puzzles_tpu_torch.train.ppo import HParams
+
+    hparams = HParams.from_config(learner.cfg)
+    return state.replace(hparams=hparams, env_params=learner.env_params,
+                         normalizer=state.normalizer.replace(gamma=hparams.gamma))
+
+
 def main(argv=None):
     from gym_puzzles_tpu_torch.train import checkpoint as ckpt
-    from gym_puzzles_tpu_torch.train.ppo import PPO, HParams, PPOConfig
+    from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 
     args = build_parser().parse_args(argv)
     config = {}
@@ -180,12 +194,7 @@ def main(argv=None):
             f"{learner.cfg.n_envs} envs each on {algo.device}")
     state = algo.init_state()
     if args.resume:
-        state = ckpt.restore(args.resume, state, mesh=mesh)
-        # this run's hyperparameters and reward params win over the
-        # checkpoint's, as in the JAX CLI
-        state = state.replace(hparams=HParams.from_config(cfg), env_params=learner.env_params,
-                              normalizer=state.normalizer.replace(
-                                  gamma=HParams.from_config(cfg).gamma))
+        state = leg_overrides(learner, ckpt.restore(args.resume, state, mesh=mesh))
         say(f"resumed from {args.resume} at {ckpt.step_count(state.timesteps)} steps")
     elif args.resume_policy:
         state = ckpt.restore_policy(args.resume_policy, state)

@@ -774,6 +774,17 @@ class PPO:
             out["learner"] = self._learner_graph[1].launches
         return out
 
+    @property
+    def graph_captures(self) -> dict:
+        """How many times each of the learner's CUDA graphs has been captured
+        (once, unless a call's signature changed), by part."""
+        out = {}
+        if self._rollout_graph is not None:
+            out["rollout"] = self._rollout_graph[0].captures
+        if self._learner_graph is not None:
+            out["learner"] = self._learner_graph[1].captures
+        return out
+
     # ------------------------------------------------------------------
     def apply_curriculum(self, ts: TrainState, update: int, n_updates: int) -> TrainState:
         """The reference trainer's per-epoch hooks (SURVEY §3.3): anneal the

@@ -284,6 +284,7 @@ class GraphedStep:
         self.counters = tuple(counters)
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
         self._cap: _Capture | None = None
+        self.captures = 0  # graphs captured so far: one per signature change
 
     @property
     def launches(self) -> dict:
@@ -301,6 +302,7 @@ class GraphedStep:
         if self._cap is None or self._cap.signature != signature:
             self._cap = None  # the old graph's memory returns to the pool first
             self._cap = self._capture(carry, args, signature)
+            self.captures += 1
         cap = self._cap
         with torch.cuda.device(self.device):
             _load_slots(cap.carry_slots + cap.arg_slots, carry_leaves + arg_leaves)

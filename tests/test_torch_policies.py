@@ -1,7 +1,12 @@
 """The JAX package's trained v2 / v3 / Heavy-v2 / Heavy-v0 policies as the
 port's committed policy files (``gym_puzzles_tpu_torch/policies/``): each
 file is a fresh export of its JAX checkpoint, and its deterministic actions
-through the port's eval path match the JAX package's on the CPU."""
+through the port's eval path match the JAX package's on the CPU.  The same
+for the policies the port trained itself on the card by the JAX recipes
+(``torch_h100_*.npz``): each loads, records its run's env steps, and its
+arrays in the JAX package's network and normalizer act as the port does."""
+
+import json
 
 import numpy as np
 import pytest
@@ -14,7 +19,8 @@ from gym_puzzles_tpu.train import normalize as jnrm
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import evaluate
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
-from torch_port_helpers import POLICIES, export_jax_policy
+from torch_port_helpers import (POLICIES, ROOT, TRAINED_POLICIES, export_jax_policy,
+                                npz_policy_tree)
 
 torch.set_num_threads(1)
 
@@ -31,6 +37,18 @@ def exported(request, tmp_path_factory):
     return policy, export_jax_policy(policy.checkpoint, out), out
 
 
+@pytest.fixture(scope="module", params=VARIANT_POLICIES + list(TRAINED_POLICIES))
+def policy_tree(request, tmp_path_factory):
+    """(policy, its JAX policy tree): a JAX policy's read from its checkpoint
+    by the JAX package's reader, a port-trained policy's from its file."""
+    if request.param in TRAINED_POLICIES:
+        policy = TRAINED_POLICIES[request.param]
+        return policy, npz_policy_tree(policy.npz)
+    policy = POLICIES[request.param]
+    out = tmp_path_factory.mktemp(request.param) / "policy.npz"
+    return policy, export_jax_policy(policy.checkpoint, out)
+
+
 def test_committed_policy_is_a_fresh_export(exported):
     policy, _tree, out = exported
     with np.load(policy.npz) as committed, np.load(out) as fresh:
@@ -42,13 +60,13 @@ def test_committed_policy_is_a_fresh_export(exported):
         assert int(committed["timesteps"]) == policy.timesteps
 
 
-def test_committed_policy_actions_match_jax(exported):
+def test_committed_policy_actions_match_jax(policy_tree):
     """Deterministic actions of the committed file through the port's eval
     path (``restore_policy`` + frozen normalizer + network) against the JAX
     package's ``normalize_obs(update=False)`` + ``ActorCritic.apply`` on 256
     seeded obs at the scale the normalizer saw: the clipped actions and the
     unclipped means within 1e-5 (relative to max(1, |mean|))."""
-    policy, tree, _ = exported
+    policy, tree = policy_tree
     algo = PPO(PPOConfig(env_id=policy.env_id, n_envs=1, n_steps=2, batch_size=2, n_epochs=1),
                device="cpu")
     norm = tree["normalizer"]
@@ -70,3 +88,26 @@ def test_committed_policy_actions_match_jax(exported):
         mean = algo.apply(st.params, t_obs)[0].numpy()
     np.testing.assert_allclose(act.numpy(), np.clip(jmean, -1, 1), rtol=0, atol=ACTION_TOL)
     assert float((np.abs(mean - jmean) / np.maximum(1.0, np.abs(jmean))).max()) <= ACTION_TOL
+
+
+@pytest.mark.parametrize("name", list(TRAINED_POLICIES))
+def test_trained_policy_records_its_run(name):
+    """A policy the port trained: it restores through ``restore_policy``
+    into a learner of its env; its step count is the run's (both legs), as
+    its run's eval records say; it has no image pipeline; and the records
+    name its env (the eval rows, each leg's config line)."""
+    policy = TRAINED_POLICIES[name]
+    algo = PPO(PPOConfig(env_id=policy.env_id, n_envs=1, n_steps=2, batch_size=2, n_epochs=1),
+               device="cpu")
+    st = ckpt.restore_policy(policy.npz, algo.init_state())
+    assert int(st.timesteps) == policy.timesteps
+    assert st.image_pipeline is None and "image/obs_shape" not in np.load(policy.npz).files
+    records = ROOT / "docs" / "benchmarks"
+    for seed in range(3):
+        row = json.loads((records / f"torch_h100_{policy.records}_eval_seed{seed}.json")
+                         .read_text())
+        assert (row["env_id"], row["trained_timesteps"]) == (policy.env_id, policy.timesteps)
+        assert row["image_pipeline"] is None and len(row["returns"]) == 128
+    for leg in range(1, policy.legs + 1):
+        lines = (records / f"torch_h100_{policy.records}_leg{leg}.jsonl").read_text().splitlines()
+        assert lines[0].startswith(f"config: PPOConfig(env_id='{policy.env_id}'")

@@ -139,6 +139,13 @@ CURRICULA = {
     # the v2 recipe (docs/benchmarks/ppo_v2_leg1_r4.jsonl): 114 updates
     "v2_update_goal": (dict(env_id="MultiRobotPuzzle-v2", update_goal=True),
                        [u * 262_144 for u in range(115)]),
+    # the Heavy-v2 recipe's two legs (ppo_hv2_leg{1,2}_r4.jsonl): the schedule
+    # over leg 1's 114 updates, then again over leg 2's 247 from leg 1's end
+    "hv2_update_goal_leg1": (dict(env_id="MultiRobotPuzzleHeavy-v2", update_goal=True),
+                             [u * 262_144 for u in range(115)]),
+    "hv2_update_goal_leg2": (dict(env_id="MultiRobotPuzzleHeavy-v2", update_goal=True,
+                                  ent_coef=0.002),
+                             [(114 + u) * 262_144 for u in range(248)]),
     # the Heavy-v0 H2 recipe (ppo_hv0_H2_r5.jsonl), the weights held and
     # annealed back over 5 updates
     "hv0_H2_rewards": (dict(env_id="MultiRobotPuzzleHeavy-v0", reward_params=H2_REWARDS),

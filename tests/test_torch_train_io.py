@@ -3,7 +3,10 @@ resume, ``restore_policy`` across batch sizes, the int64 step counter,
 chunk-invariant evaluation, the committed v0 policy against the JAX
 package's, and the train / eval CLIs."""
 
+import copy
+import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,14 +14,17 @@ import torch
 
 import jax.numpy as jnp
 
+from gym_puzzles_tpu.envs.config import RewardParams as JaxRewardParams
 from gym_puzzles_tpu.train import networks as jnet
 from gym_puzzles_tpu.train import normalize as jnrm
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, export
-from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
+from gym_puzzles_tpu_torch.train.ppo import PPO, HParams, PPOConfig
 from torch_port_helpers import V0_POLICY_NPZ, assert_trees_equal, export_jax_policy
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
 
 ITERS = dict(velocity_iters=8, position_iters=4)
 
@@ -215,6 +221,65 @@ def test_cli_train_resume_eval(tmp_path, monkeypatch, capsys):
         assert row["trained_timesteps"] == steps and row["device"] == "cpu"
         assert len(row["returns"]) == 2 and row["lengths"] == [6, 6]
         assert row["completions"] == 0 and row["eval_solver_iters"] == [8, 4]
+
+
+def test_cli_leg2_resume(tmp_path, monkeypatch):
+    """The v2 recipe's two legs through the CLI at 64 envs (8/4): leg 1 of 2
+    updates saved, then ``--resume`` with ``--ent_coef 0.002 --update_goal``.
+    The TrainState leg 2 starts from carries the checkpoint's params, Adam
+    state, normalizer, env batch, generators and step count; its hparams are
+    leg 2's and its reward params the variant's defaults (leg 1's curriculum
+    state dropped), and ``scaled_epsilon`` follows the JAX package's
+    ``update_goal`` over leg 2's updates, bit for bit."""
+    base = ["--device", "cpu", "--disable_wandb", "--config", "train_configs/ppo-mrp-v2.json",
+            "--n_envs", "64", "--n_steps", "4", "--batch_size", "128", "--n_epochs", "1",
+            "--seed", "3", "--update_goal", *sum((["--" + k, str(v)] for k, v in ITERS.items()),
+                                                 [])]
+    monkeypatch.chdir(ROOT)
+    cli.main(base + ["--total_timesteps", "512", "--save_model",
+                     "--checkpoint_dir", str(tmp_path / "leg1")])
+    leg1 = tmp_path / "leg1" / "MultiRobotPuzzle-v2"
+    saved = ckpt.load(leg1)
+    assert saved["timesteps"] == 512 and saved["hparams"]["ent_coef"] != np.float32(0.002)
+
+    seen, schedule = {}, []
+    learn, curriculum = PPO.learn, PPO.apply_curriculum
+
+    def spy_learn(self, total_timesteps=None, log_fn=None, state=None, **kw):
+        seen["tree"] = copy.deepcopy(ckpt.to_tree(state))  # learn advances it in place
+        seen["n_updates"] = total_timesteps // (self.cfg.n_steps * self.cfg.n_envs)
+        return learn(self, total_timesteps, log_fn, state, **kw)
+
+    def spy_curriculum(self, ts, update, n_updates):
+        ts = curriculum(self, ts, update, n_updates)
+        schedule.append((update, n_updates, ts.env_params.scaled_epsilon))
+        return ts
+
+    monkeypatch.setattr(PPO, "learn", spy_learn)
+    monkeypatch.setattr(PPO, "apply_curriculum", spy_curriculum)
+    final = cli.main(base + ["--ent_coef", "0.002", "--total_timesteps", "768",
+                             "--resume", str(leg1)])
+    resumed = seen["tree"]
+    carried = ("params", "opt_state", "vstate", "last_obs", "generator", "env_generator",
+               "timesteps", "ep_return", "ep_len", "stat_return", "stat_count")
+    assert_trees_equal({k: resumed[k] for k in carried}, {k: saved[k] for k in carried})
+    assert_trees_equal({k: v for k, v in resumed["normalizer"].items() if k != "gamma"},
+                       {k: v for k, v in saved["normalizer"].items() if k != "gamma"})
+    cfg = PPOConfig.from_reference_json(json.loads((ROOT / "train_configs/ppo-mrp-v2.json")
+                                                   .read_text()), ent_coef=0.002)
+    assert resumed["hparams"] == dataclasses.asdict(HParams.from_config(cfg))
+    assert resumed["hparams"]["ent_coef"] == float(np.float32(0.002))
+    assert resumed["normalizer"]["gamma"] == float(np.float32(0.997))
+    jp = JaxRewardParams.default("v2")
+    assert resumed["env_params"] == {f: float(np.float32(np.asarray(getattr(jp, f))))
+                                     for f in resumed["env_params"]}
+    # the goal schedule restarts over leg 2's 3 updates, as the JAX package's
+    assert seen["n_updates"] == 3 and [u for u, _n, _e in schedule] == [0, 1, 2]
+    for u, n, eps in schedule:
+        want = np.float32(np.asarray(jp.update_goal(u, n, jp.scaled_epsilon).scaled_epsilon))
+        assert n == 3 and np.float32(eps).view(np.uint32) == want.view(np.uint32), (u, eps, want)
+    assert int(final.timesteps) == 512 + 768 and final.hparams.ent_coef == resumed["hparams"][
+        "ent_coef"]
 
 
 def test_no_cuda_raises(monkeypatch, tmp_path):

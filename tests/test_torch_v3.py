@@ -2,15 +2,15 @@
 the same states (carried across with ``convert``) and the same numpy actions.
 
 * ``reset_fast`` observations of the same spawned states: within 1e-4
-  (normalized units), for the registered env and for ``num_agents=3,
-  heavy=True``.
+  (normalized units), for the registered env and for ``num_agents=3`` and
+  ``5``, ``heavy=True``.
 * ``_control`` and ``_score`` alone on the same states: floats within
   rtol 1e-5 / atol 1e-6, flags and counters equal; the completion branch is
   reached by injecting the block onto the goal.
 * A 40-step drive through ``VectorEnv``: obs within 1e-4 and reward within
   1e-3 while an env has had no contact, done / done_status equal at every
   step, returns (rtol 1e-4, atol 1e-3) and terminations after it.  The
-  3-agent heavy world for 15 steps.
+  heavy world with 3 and with 5 agents for 15 steps.
 * The registry's v3 constructor surface and its ``ValueError``s; spawn
   ranges (the port draws from a ``torch.Generator``, so spawns are compared
   by range and shape, not by value).
@@ -35,13 +35,15 @@ torch.set_num_threads(1)
 ENV_ID = "MultiRobotPuzzle-v3"
 E = 16
 HEAVY3 = dict(num_agents=3, heavy=True)
+HEAVY5 = dict(num_agents=5, heavy=True)
 
 
 def torch_logic(**kw):
     return treg._logic(ENV_ID, "t", 8, 4, None, **kw)
 
 
-@pytest.mark.parametrize("kw", [{}, HEAVY3], ids=["registered", "3-agents-heavy"])
+@pytest.mark.parametrize("kw", [{}, HEAVY3, HEAVY5],
+                         ids=["registered", "3-agents-heavy", "5-agents-heavy"])
 def test_reset_fast_obs_of_carried_spawns(kw):
     jenv = jax_env(ENV_ID, E, **kw)
     jstate, jobs = jax_spawns(jenv, 1)
@@ -97,10 +99,16 @@ def test_40_step_drive_matches_jax():
     compare_drive(ENV_ID, E, 40, 2, return_tol=(1e-4, 1e-3))
 
 
-def test_heavy_three_agent_drive_matches_jax():
+@pytest.mark.parametrize("num_agents", [3, 5])
+def test_heavy_three_agent_drive_matches_jax(num_agents):
+    """The heavy world with three agents, and with five (48 pairs: the large
+    size class of the port's kernels), whose eight spawns are all in contact
+    from the first step: for it the returns and terminations are compared
+    (its spawns' obs: ``test_reset_fast_obs_of_carried_spawns``)."""
     env, state = compare_drive(ENV_ID, 8, 15, 4, return_tol=(1e-4, 1e-3), need_contact=False,
-                               **HEAVY3)
-    assert env.logic.layout.table.num_bodies == 8 and state.goal_contact.shape == (3, 8)
+                               need_free=num_agents == 3, num_agents=num_agents, heavy=True)
+    assert env.logic.layout.table.num_bodies == 5 + num_agents
+    assert state.goal_contact.shape == (num_agents, 8)
 
 
 def test_registry_constructor_surface():
