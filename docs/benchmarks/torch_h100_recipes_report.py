@@ -1,7 +1,7 @@
-"""Summarize the port's runs of the JAX package's flat recipes on the GPU
+"""Summarize the port's runs of the JAX package's recipes on the GPU
 (``torch_h100_ppo_recipes.sh`` and ``torch_h100_ppo_v0.sh``; their records
-``docs/benchmarks/torch_h100_{v0g,v2,hv2,v3}_*``) against the JAX package's
-records of the same recipes.  Run from the repo root (the CPU will do):
+``docs/benchmarks/torch_h100_<run>_*``) against the JAX package's records of
+the same recipes.  Run from the repo root (the CPU will do):
 
     python docs/benchmarks/torch_h100_recipes_report.py [--curves RUN ...]
 
@@ -12,10 +12,17 @@ and the whole run's env-steps/s, over the legs' wall time (process start,
 kernel build and graph capture included) and over the updates alone (the
 trainer's own per-update rates; the first update of each leg includes the
 graphs' capture), kernel A's launches in the rollout replays (n_steps per
-update), and the config fields in which each leg differs from the
-JAX run's header.  ``--curves`` adds, for the runs named, the
-mean ``ep_rew_mean`` / ``entropy`` / ``approx_kl`` / ``completions`` per
-tenth of each leg beside the JAX run's.
+update, four times that for a pixel recipe's frameskip), the config fields
+in which each leg differs from the JAX run's header (the run declares
+which), and, where a run holds one, the mean ``ep_rew_mean`` over a window
+of updates beside the JAX run's.  Then one pooled line per recipe run at
+several training seeds: for Heavy-v2 the mean ``M`` and standard deviation
+``s`` of the runs' pooled means and the seed-spread rule (the JAX record's
+mean inside ``M +- 3 s / 2``, three standard errors over the runs), for the
+pixel r4 recipe the mean over all the runs' episodes against the band for
+that many.  ``--curves`` adds, for the runs named, the mean ``ep_rew_mean`` /
+``entropy`` / ``approx_kl`` / ``completions`` per tenth of each leg beside
+the JAX run's same updates.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import json
 import re
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -34,21 +42,48 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import record_band  # noqa: E402
 
 RECORDS = ROOT / "docs" / "benchmarks"
-# run -> (the JAX records of its recipe's policy, the JAX run's leg logs, the steps of the run)
+
+
+class Run(NamedTuple):
+    records: list  # the JAX records of its recipe's policy (eval rows, one per seed)
+    jax_legs: list  # the JAX run's leg logs
+    steps: int  # the steps the run trains
+    declared: tuple = ()  # config fields the run sets unlike the JAX header
+    window: tuple = ()  # updates [lo, hi) whose mean ep_rew_mean the run is held to
+    other_records: list = ()  # JAX records of a further band to report beside
+
+
+HV2 = ([f"eval_hv2_r4_seed{k}_fused.json" for k in range(3)],
+       ["ppo_hv2_leg1_r4.jsonl", "ppo_hv2_leg2_r4.jsonl"], 94_633_984)
+CNN4 = ([f"eval_v0_cnn_r4_seed{k}.json" for k in range(2)], ["ppo_v0_cnn_r4.jsonl"], 9_994_240)
+CNN5 = [f"eval_v0_cnn_r5_seed{k}.json" for k in range(3)]
 RUNS = {
-    "v0g": ([f"eval_v0_r4_seed{k}_fused.json" for k in range(3)],
-            ["ppo_v0_leg1_r4.jsonl", "ppo_v0_leg2_r4.jsonl"], 179_830_784),
-    "v2": ([f"eval_v2_r4_seed{k}_fused.json" for k in range(3)],
-           ["ppo_v2_leg1_r4.jsonl", "ppo_v2_leg2_r4.jsonl"], 94_633_984),
-    "hv2": ([f"eval_hv2_r4_seed{k}_fused.json" for k in range(3)],
-            ["ppo_hv2_leg1_r4.jsonl", "ppo_hv2_leg2_r4.jsonl"], 94_633_984),
-    "v3": ([f"eval_v3_r4_seed{k}_fused.json" for k in range(3)],
-           ["ppo_v3_retrain_r4.jsonl"], 119_799_808),
+    "v0g": Run([f"eval_v0_r4_seed{k}_fused.json" for k in range(3)],
+               ["ppo_v0_leg1_r4.jsonl", "ppo_v0_leg2_r4.jsonl"], 179_830_784),
+    "v2": Run([f"eval_v2_r4_seed{k}_fused.json" for k in range(3)],
+              ["ppo_v2_leg1_r4.jsonl", "ppo_v2_leg2_r4.jsonl"], 94_633_984),
+    "hv2": Run(*HV2),
+    "v3": Run([f"eval_v3_r4_seed{k}_fused.json" for k in range(3)],
+              ["ppo_v3_retrain_r4.jsonl"], 119_799_808),
+    # the Heavy-v2 recipe again at other training seeds
+    **{f"hv2_s{k}": Run(*HV2, declared=("seed",)) for k in (4, 5, 6)},
+    # the pixel r4 recipe at its own seed and one more
+    "cnn4_s17": Run(*CNN4),
+    "cnn4_s18": Run(*CNN4, declared=("seed",)),
+    # the first 5,126 updates (35-42M steps: the last 854) of the pixel r5
+    # recipe's first leg, which has no JAX eval at that point
+    "cnn5a": Run(CNN4[0], ["ppo_v0_cnn_r5_leg1.jsonl"], 41_992_192,
+                 declared=("total_timesteps",), window=(4272, 5126), other_records=CNN5),
 }
 # the v0 run of the eager learner, kept under its own names
 RUNS["v0 eager"] = RUNS["v0g"]
 NAMES = {"v0 eager": ("torch_h100_ppo_v0_leg{}.jsonl", "torch_h100_eval_v0_seed{}.json",
                       "torch_h100_ppo_v0_times.txt")}
+# a recipe's runs at several training seeds, pooled, and what each group is
+# held to: "spread" = the JAX record's mean inside M +- 3 s / 2 (else a port
+# fault), "band" = all the runs' episodes inside record_band for that many
+SEED_GROUPS = {"hv2": (["hv2", "hv2_s4", "hv2_s5", "hv2_s6"], "spread"),
+               "cnn4": (["cnn4_s17", "cnn4_s18"], "band")}
 CURVE_KEYS = ("ep_rew_mean", "entropy", "approx_kl", "completions")
 
 
@@ -84,7 +119,7 @@ def config_diff(run: str) -> list:
     run's header (a field the older header lacks counts only when it is not
     None)."""
     out = []
-    for k, jax_leg in enumerate(RUNS[run][1]):
+    for k, jax_leg in enumerate(RUNS[run].jax_legs):
         port = config(paths(run)[0](k + 1))
         ref = config(RECORDS / jax_leg)
         out.append({f: (ref.get(f), port.get(f)) for f in sorted(set(port) | set(ref))
@@ -92,11 +127,23 @@ def config_diff(run: str) -> list:
     return out
 
 
+def eval_returns(run: str) -> np.ndarray:
+    """The returns of a run's 3 x 128 eval episodes."""
+    return np.concatenate([json.loads(paths(run)[1](k).read_text())["returns"]
+                           for k in range(3)]).astype(np.float64)
+
+
+def window_mean(path: Path, window: tuple) -> float:
+    """The mean ``ep_rew_mean`` of a log's updates [lo, hi) (NaNs skipped)."""
+    rows = [u for u in updates(path) if window[0] <= u["update"] < window[1]]
+    return float(np.nanmean(np.array([u["ep_rew_mean"] for u in rows], dtype=np.float64)))
+
+
 def summary(run: str) -> dict:
-    records, jax_legs, steps = RUNS[run]
+    records, jax_legs, steps = RUNS[run][:3]
     leg_path, row_path, times_path = paths(run)
     rows = [json.loads(row_path(k).read_text()) for k in range(3)]
-    returns = np.concatenate([r["returns"] for r in rows]).astype(np.float64)
+    returns = eval_returns(run)
     mean, _sd, _n, band = record_band(records, len(returns))
     lines = times_path.read_text().splitlines()
     walls = dict(line.split() for line in lines[1:])
@@ -108,6 +155,10 @@ def summary(run: str) -> dict:
     step = per_update[0]["timesteps"]
     update_s = sum(step / u["steps_per_s"] for u in per_update)
     leg_update_s = [[step / u["steps_per_s"] for u in leg] for leg in legs]
+    leg1 = config(leg_path(1))
+    window = RUNS[run].window
+    held = window and (window_mean(leg_path(1), window), window_mean(RECORDS / jax_legs[0], window))
+    other = RUNS[run].other_records
     return dict(card=lines[0], leg_walls=leg_walls,
                 eval_walls=[float(walls[f"eval_seed{k}"]) for k in range(3)],
                 trained=[r["trained_timesteps"] for r in rows], logged_steps=trained,
@@ -117,21 +168,42 @@ def summary(run: str) -> dict:
                 seed_means=[r["mean_return"] for r in rows],
                 completions=[r["completions"] for r in rows],
                 updates=len(per_update), run_rate=trained / sum(leg_walls),
-                # each update replays the rollout's graph, which holds n_steps launches
-                launches=len(per_update) * int(config(leg_path(1))["n_steps"]),
+                # each update replays the rollout's graph, which holds n_steps
+                # launches, four per step at the image pipeline's frameskip
+                launches=(len(per_update) * int(leg1["n_steps"])
+                          * (4 if leg1["policy"] == "'cnn'" else 1)),
                 update_rate=trained / update_s,
                 first_s=[leg[0] for leg in leg_update_s],
                 median_s=float(np.median([t for leg in leg_update_s for t in leg[1:]])),
-                start_s=[w - sum(leg) for w, leg in zip(leg_walls, leg_update_s)])
+                start_s=[w - sum(leg) for w, leg in zip(leg_walls, leg_update_s)],
+                eval_iters=[r["eval_solver_iters"] for r in rows], window=window, held=held,
+                other_band=other and record_band(other, len(returns)))
+
+
+def seed_pool(group: str) -> dict:
+    """A recipe's runs at several training seeds: each run's pooled mean,
+    their mean ``M`` and sample standard deviation ``s``, whether the JAX
+    record's mean lies in ``M +- 3 s / 2``, and the mean of all the runs'
+    episodes against the band for that many."""
+    runs, held = SEED_GROUPS[group]
+    means = np.array([eval_returns(r).mean() for r in runs])
+    every = np.concatenate([eval_returns(r) for r in runs])
+    jax_mean, _sd, _n, band = record_band(RUNS[runs[0]].records, len(every))
+    m, sd = float(means.mean()), float(means.std(ddof=1))
+    return dict(runs=runs, held=held, means=means.tolist(), M=m, s=sd, jax_mean=jax_mean,
+                spread=(m - 1.5 * sd, m + 1.5 * sd), within=abs(jax_mean - m) <= 1.5 * sd,
+                episodes=len(every), pooled=float(every.mean()), band=band,
+                inside=band[0] <= every.mean() <= band[1])
 
 
 def curves(run: str, parts: int = 10):
-    _records, jax_legs, _steps = RUNS[run]
+    jax_legs = RUNS[run].jax_legs
     for k, jax_leg in enumerate(jax_legs):
         port = updates(paths(run)[0](k + 1))
         ref = updates(RECORDS / jax_leg)
         n = len(port)
-        print(f"\n{run} leg {k + 1} ({n} updates; JAX {len(ref)}): mean per tenth, port | JAX")
+        print(f"\n{run} leg {k + 1} ({n} updates; JAX {len(ref)}): mean per tenth, port | "
+              "JAX over the same updates")
         print("| updates | " + " | ".join(CURVE_KEYS) + " |")
         print("|---|" + "---|" * len(CURVE_KEYS))
         for lo in range(0, n, -(-n // parts)):
@@ -167,7 +239,28 @@ def main(argv=None):
               f"of its leg {s['median_s']:.4f} s (median), the first "
               f"{', '.join(f'{t:.2f}' for t in s['first_s'])} s, each leg's time outside its "
               f"updates {', '.join(f'{t:.1f}' for t in s['start_s'])} s; config fields "
-              f"unlike the JAX run's, per leg: {config_diff(run)}")
+              f"unlike the JAX run's, per leg: {config_diff(run)} (declared "
+              f"{list(RUNS[run].declared)}); eval solver iterations {s['eval_iters']}")
+        if s["window"]:
+            lo, hi = s["window"]
+            print(f"  {run}: mean ep_rew_mean over updates {lo}-{hi - 1} {s['held'][0]:,.1f} "
+                  f"(JAX {s['held'][1]:,.1f}): {'above' if s['held'][0] > 0 else 'NOT above'} 0")
+        if s["other_band"]:
+            o = s["other_band"]
+            print(f"  {run}: beside the band of {RUNS[run].other_records}, "
+                  f"[{o[3][0]:,.1f}, {o[3][1]:,.1f}] around {o[0]:,.1f}")
+    for group in SEED_GROUPS:
+        g = seed_pool(group)
+        spread = (f"the JAX mean {g['jax_mean']:,.1f} "
+                  f"{'inside' if g['within'] else 'OUTSIDE'} M +- 3 s / 2 = "
+                  f"[{g['spread'][0]:,.1f}, {g['spread'][1]:,.1f}]")
+        if g["held"] == "spread":
+            spread += ": a seed's spread" if g["within"] else ": a port fault"
+        print(f"{group} over {len(g['runs'])} training seeds ({', '.join(g['runs'])}): pooled "
+              f"means {', '.join(f'{m:,.1f}' for m in g['means'])}; M {g['M']:,.1f}, s "
+              f"{g['s']:,.1f}; {spread}; all {g['episodes']} episodes {g['pooled']:,.1f} "
+              f"against [{g['band'][0]:,.1f}, {g['band'][1]:,.1f}]: "
+              f"{'inside' if g['inside'] else 'OUTSIDE'}")
     for run in args.curves:
         curves(run)
 
