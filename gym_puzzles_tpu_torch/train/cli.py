@@ -244,6 +244,9 @@ def main(argv=None):
     final = algo.learn(args.total_timesteps, log_fn=log_fn, state=state,
                        checkpoint_fn=checkpoint_fn if args.save_model else None,
                        checkpoint_every=args.checkpoint_every)
+    # on the card: how often each graph was captured (once each, unless a
+    # call's signature changed mid-run); on the CPU nothing is captured
+    say(f"graph captures: {json.dumps(learner.graph_captures)}")
     # the last periodic save may already hold the final step
     if args.save_model and saved["step"] != ckpt.step_count(final.timesteps):
         save(final)

@@ -93,9 +93,10 @@ def test_committed_policy_actions_match_jax(policy_tree):
 @pytest.mark.parametrize("name", list(TRAINED_POLICIES))
 def test_trained_policy_records_its_run(name):
     """A policy the port trained: it restores through ``restore_policy``
-    into a learner of its env; its step count is the run's (both legs), as
-    its run's eval records say; it has no image pipeline; and the records
-    name its env (the eval rows, each leg's config line)."""
+    into a learner of its env; its step count is the run's (every leg, a
+    warm start's too), as its run's eval records say; it has no image
+    pipeline; and the records name its env (the eval rows, each leg's config
+    line)."""
     policy = TRAINED_POLICIES[name]
     algo = PPO(PPOConfig(env_id=policy.env_id, n_envs=1, n_steps=2, batch_size=2, n_epochs=1),
                device="cpu")

@@ -3,8 +3,9 @@ the GPU (``docs/benchmarks/torch_h100_<run>_*``, summarized by
 ``docs/benchmarks/torch_h100_recipes_report.py``): each leg's ``config:``
 line is its JAX run's header field for field but for the fields the run
 declares, each eval row records the run's steps at the registered solver
-iterations, and the pixel r4 bands are what ``chip_smoke.record_band``
-gives.  Reads committed files only."""
+iterations, each update's step count is the JAX run's modulo 2^32, and
+the pixel r4 and Heavy-v0 bands are what ``chip_smoke.record_band`` gives.
+Reads committed files only."""
 
 from __future__ import annotations
 
@@ -42,9 +43,9 @@ def test_eval_rows_record_the_run(run):
     the run's steps; every eval ran 128 episodes of the recipe's env and
     policy at the registered 180/60."""
     spec = report.RUNS[run]
-    leg_path, row_path, _times = report.paths(run)
-    last = report.config(leg_path(len(spec.jax_legs)))
-    assert report.updates(leg_path(len(spec.jax_legs)))[-1]["timesteps"] == spec.steps
+    row_path = report.paths(run)[1]
+    last = report.config(report.leg_log(run, len(spec.jax_legs)))
+    assert report.updates(report.leg_log(run, len(spec.jax_legs)))[-1]["timesteps"] == spec.steps
     for k in range(3):
         row = json.loads(row_path(k).read_text())
         assert row["trained_timesteps"] == spec.steps
@@ -67,6 +68,7 @@ def test_cnn_r4_bands(n, band):
 @pytest.mark.parametrize("group, means, within, inside", [
     ("hv2", (1_528.1, 2_781.8, 2_777.4, 3_462.0), True, True),
     ("cnn4", (-10_558.8, -9_594.0), True, True),
+    ("hv0h2", (-22_502.9, -22_841.4, -22_402.0), False, True),
 ])
 def test_seed_pools(group, means, within, inside):
     """A recipe's runs at several training seeds: their pooled means, the
@@ -77,3 +79,59 @@ def test_seed_pools(group, means, within, inside):
     assert tuple(round(m, 1) for m in g["means"]) == means
     assert g["M"] == pytest.approx(sum(means) / len(means), abs=0.1)
     assert (g["within"], g["inside"]) == (within, inside)
+
+
+@pytest.mark.parametrize("run", list(report.RUNS))
+def test_step_counts_follow_jax(run):
+    """Each leg's logged step counts are the JAX run's at the same updates,
+    modulo 2^32 (the JAX counter is int32, the port's int64): a warm start
+    and a resume carry the count across."""
+    for k, jax_leg in enumerate(report.RUNS[run].jax_legs):
+        port = report.updates(report.leg_log(run, k + 1))
+        ref = report.updates(report.RECORDS / jax_leg)[:len(port)]
+        assert len(ref) == len(port), (k + 1, len(ref), len(port))
+        assert [u["timesteps"] % 2**32 for u in port] == [u["timesteps"] % 2**32 for u in ref]
+
+
+@pytest.mark.parametrize("records, n, stats, band", [
+    (report.HV0H2[0], 384, (-20_823.9, 15_496.5, 384), (-24_179.0, -17_468.8)),
+    (report.HV0H2[0], 1_152, (-20_823.9, 15_496.5, 384), (-23_563.3, -18_084.5)),
+    (report.RUNS["hv0h3"].records, 384, (-31_227.3, 20_259.0, 128), (-37_430.3, -25_024.3)),
+], ids=["h2_one_run", "h2_three_runs", "h3"])
+def test_hv0_bands(records, n, stats, band):
+    """The Heavy-v0 H2 records (3 x 128 JAX episodes) and H3's (128) give
+    the bands held for one run, for three runs pooled and for H3."""
+    mean, sd, n_jax, got = report.record_band(records, n)
+    assert (round(mean, 1), round(sd, 1), n_jax) == stats
+    assert tuple(round(x, 1) for x in got) == band
+
+
+def test_h3_counts_past_int32():
+    """H3 ends past 2^31 steps: the port's int64 count 2,399,141,888 in its
+    log and eval rows, the JAX log's and eval row's int32 -1,895,825,408,
+    the same modulo 2^32 and not otherwise."""
+    jax_last = report.updates(report.RECORDS / "ppo_hv0_H3_r5.jsonl")[-1]["timesteps"]
+    jax_row = json.loads((report.RECORDS / "eval_hv0_H3_r5_seed0.json").read_text())
+    port_last = report.updates(report.leg_log("hv0h3", 2))[-1]["timesteps"]
+    assert jax_last == jax_row["trained_timesteps"] == -1_895_825_408
+    assert port_last == report.RUNS["hv0h3"].steps == 2_399_141_888 > 2**31
+    assert (port_last - jax_last) % 2**32 == 0 and port_last != jax_last
+    for k in range(3):
+        row = json.loads(report.paths("hv0h3")[1](k).read_text())
+        assert row["trained_timesteps"] == port_last
+
+
+@pytest.mark.parametrize("group, missed", [("hv2", ["hv2"]), ("cnn4", []), ("hv0h2", [])])
+def test_seed_rule_needs_a_miss(group, missed):
+    """The seed-spread rule judges only a run that missed its own band: the
+    Heavy-v2 run at seed 3 did, no Heavy-v0 H2 run and no pixel run did."""
+    assert report.seed_pool(group)["missed"] == missed
+
+
+@pytest.mark.parametrize("run", ["hv0h2_s0", "hv0h2_s1", "hv0h2_s2", "hv0h3"])
+def test_graphs_captured_once_per_leg(run):
+    """Every leg of the Heavy-v0 runs (524,288 samples per update, the
+    largest either graph was captured at) captured the rollout's and the
+    learner's graph once each: no recapture mid-leg."""
+    for k in range(len(report.RUNS[run].jax_legs)):
+        assert report.captures(report.leg_log(run, k + 1)) == {"rollout": 1, "learner": 1}

@@ -336,6 +336,9 @@ POLICIES = {
                       94_633_984),
     "hv0_H2_r5": _policy("hv0_H2_r5", "MultiRobotPuzzleHeavy-v0",
                          "MultiRobotPuzzleHeavy-v0_H2_r5", 1_799_356_416),
+    # the X4 checkpoint: the warm start of the H2 recipe (--resume_policy)
+    "hv0_best_r4": _policy("hv0_best_r4", "MultiRobotPuzzleHeavy-v0",
+                           "MultiRobotPuzzleHeavy-v0_best_r4", 1_499_463_680),
 }
 V0_POLICY_CHECKPOINT = POLICIES["v0_r4"].checkpoint
 V0_POLICY_NPZ = POLICIES["v0_r4"].npz
@@ -349,7 +352,7 @@ class TrainedPolicy:
 
     npz: Path
     env_id: str
-    timesteps: int  # the env steps of the run, both legs
+    timesteps: int  # the env steps of the run, every leg (and a warm start's)
     records: str
     legs: int
 
@@ -365,6 +368,9 @@ TRAINED_POLICIES = {
     "torch_v2": _trained("MultiRobotPuzzle-v2", "v2", 94_633_984, 2),
     "torch_hv2": _trained("MultiRobotPuzzleHeavy-v2", "hv2", 94_633_984, 2),
     "torch_v3": _trained("MultiRobotPuzzle-v3", "v3", 119_799_808, 1),
+    # the H2 leg at seed 0, warm-started from the X4 policy: its steps include
+    # the warm start's 1,499,463,680 (docs/benchmarks/torch_h100_ppo_recipes.sh hv0h3)
+    "torch_hv0": _trained("MultiRobotPuzzleHeavy-v0", "hv0h2_s0", 1_799_356_416, 1),
 }
 
 
