@@ -23,11 +23,14 @@ where a run holds one, the mean ``ep_rew_mean`` over a window of updates
 beside the JAX run's.  Then one pooled line per recipe run at several
 training seeds: the mean ``M`` and standard deviation ``s`` of the runs'
 pooled means and the seed-spread rule (the JAX record's mean inside ``M +- 3
-s / 2``, three standard errors over the runs; held for Heavy-v2 and
-Heavy-v0 H2), and the mean over all the runs' episodes against the band for
-that many.  ``--curves`` adds, for the runs named, the mean ``ep_rew_mean`` /
+s / 2``, three standard errors over the runs; held for Heavy-v2, Heavy-v0
+H2 and each leg of the Heavy-v0 curriculum), and the mean over all the
+runs' episodes against the band for that many.  ``--curves`` adds, for the runs named, the mean ``ep_rew_mean`` /
 ``entropy`` / ``approx_kl`` / ``completions`` per tenth of each leg beside
-the JAX run's same updates.
+the JAX run's same updates.  A run of more than one leg also prints a line
+per leg: its updates, wall time, median update, env-steps/s, launches,
+update 0 beside the JAX leg's, and whether update 0 continues the step
+count of the leg before it.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ class Run(NamedTuple):
     declared: tuple = ()  # config fields the run sets unlike the JAX header
     window: tuple = ()  # updates [lo, hi) whose mean ep_rew_mean the run is held to
     other_records: list = ()  # JAX records of a further band to report beside
-    before: str = ""  # the run whose legs come first (its final checkpoint resumed)
+    before: str = ""  # the run whose legs come first (its final checkpoint or policy carried on)
 
 
 HV2 = ([f"eval_hv2_r4_seed{k}_fused.json" for k in range(3)],
@@ -90,6 +93,42 @@ RUNS = {
     "hv0h3": Run(["eval_hv0_H3_r5_seed0.json"], HV0H2[1] + ["ppo_hv0_H3_r5.jsonl"],
                  2_399_141_888, before="hv0h2_s0"),
 }
+# Heavy-v0 from a fresh init by the JAX package's whole curriculum (recipe
+# hv0c): (leg, the JAX records of its policy, its JAX log, the steps at its
+# end); each leg is a run that continues the one before it, H2 by a warm
+# start from X4's exported policy
+HV0C_LEGS = (
+    ("curB", [f"eval_hv0_curB_det_seed{k}.json" for k in range(2)],
+     "ppo_hv0_curB_600M_r4.jsonl", 599_785_472),
+    ("x2", [f"eval_hv0_X2_seed{k}.json" for k in range(3)], "ppo_hv0_X2_sharpen_r4.jsonl",
+     899_678_208),
+    ("x3", [f"eval_hv0_X3_seed{k}.json" for k in range(3)], "ppo_hv0_X3_speed_r4.jsonl",
+     1_199_570_944),
+    ("x4", [f"eval_hv0_X4_seed{k}.json" for k in range(3)], "ppo_hv0_X4_default_r4.jsonl",
+     1_499_463_680),
+    ("h2", HV0H2[0], HV0H2[1][0], HV0H2[2]),
+)
+
+
+def chain(prefix: str, declared: tuple = ()) -> dict:
+    """The runs ``<prefix>_<leg>`` of a chain of the curriculum's legs, each
+    with the run of the leg before it as its ``before``."""
+    runs, logs, before = {}, [], ""
+    for leg, records, log, steps in HV0C_LEGS:
+        logs = logs + [log]
+        runs[f"{prefix}_{leg}"] = Run(records, logs, steps, declared=declared, before=before)
+        before = f"{prefix}_{leg}"
+    return runs
+
+
+RUNS.update(chain("hv0c"))
+# the whole chain once more at seeds 111 / 121 / 131 / 141 / 100, as the rule
+# fixed before the first chain was read asks when any leg misses its band
+RUNS.update(chain("hv0c2", declared=("seed",)))
+# and a third time at seeds 211 / 221 / 231 / 241 / 200: with two chains
+# M +- 3 s / 2 spans 1.06 times their difference around their midpoint, too
+# wide to tell the first chain's misses from a seed's spread
+RUNS.update(chain("hv0c3", declared=("seed",)))
 # the v0 run of the eager learner, kept under its own names
 RUNS["v0 eager"] = RUNS["v0g"]
 NAMES = {"v0 eager": ("torch_h100_ppo_v0_leg{}.jsonl", "torch_h100_eval_v0_seed{}.json",
@@ -100,7 +139,11 @@ NAMES = {"v0 eager": ("torch_h100_ppo_v0_leg{}.jsonl", "torch_h100_eval_v0_seed{
 # runs' episodes inside record_band for that many
 SEED_GROUPS = {"hv2": (["hv2", "hv2_s4", "hv2_s5", "hv2_s6"], "spread"),
                "cnn4": (["cnn4_s17", "cnn4_s18"], "band"),
-               "hv0h2": (["hv0h2_s0", "hv0h2_s1", "hv0h2_s2"], "spread")}
+               "hv0h2": (["hv0h2_s0", "hv0h2_s1", "hv0h2_s2"], "spread"),
+               # each leg of the three Heavy-v0 curriculum chains
+               **{f"hv0c_{leg[0]}": ([f"{c}_{leg[0]}" for c in ("hv0c", "hv0c2", "hv0c3")],
+                                     "spread")
+                  for leg in HV0C_LEGS}}
 CURVE_KEYS = ("ep_rew_mean", "entropy", "approx_kl", "completions")
 
 
@@ -195,11 +238,17 @@ def summary(run: str) -> dict:
     leg_walls = [wall[f"leg{k + 1}"] for k in range(len(legs))]
     per_update = [u for leg in legs for u in leg]
     trained = legs[-1][-1]["timesteps"]
-    leg1 = config(leg_log(run, 1))
+    cfgs = [config(leg_log(run, k + 1)) for k in range(len(legs))]
     # an update's steps over its logged rate: the wall time between two logs
-    step = int(leg1["n_envs"]) * int(leg1["n_steps"])
-    update_s = sum(step / u["steps_per_s"] for u in per_update)
-    leg_update_s = [[step / u["steps_per_s"] for u in leg] for leg in legs]
+    steps_per = [int(c["n_envs"]) * int(c["n_steps"]) for c in cfgs]
+    leg_update_s = [[step / u["steps_per_s"] for u in leg] for leg, step in zip(legs, steps_per)]
+    update_s = sum(t for leg in leg_update_s for t in leg)
+    # each update replays the rollout's graph, which holds n_steps launches,
+    # four per step at the image pipeline's frameskip
+    leg_launches = [len(leg) * int(c["n_steps"]) * (4 if c["policy"] == "'cnn'" else 1)
+                    for leg, c in zip(legs, cfgs)]
+    stepped = sum(len(leg) * step for leg, step in zip(legs, steps_per))
+    jax_logs = [updates(RECORDS / f) for f in jax_legs]
     jax_lengths = np.concatenate([json.loads((RECORDS / f).read_text())["lengths"]
                                   for f in records])
     window = RUNS[run].window
@@ -221,17 +270,27 @@ def summary(run: str) -> dict:
                 inside=band[0] <= returns.mean() <= band[1],
                 seed_means=[r["mean_return"] for r in rows],
                 completions=[r["completions"] for r in rows],
-                updates=len(per_update), run_rate=len(per_update) * step / sum(leg_walls),
-                # each update replays the rollout's graph, which holds n_steps
-                # launches, four per step at the image pipeline's frameskip
-                launches=(len(per_update) * int(leg1["n_steps"])
-                          * (4 if leg1["policy"] == "'cnn'" else 1)),
-                update_rate=len(per_update) * step / update_s,
+                updates=len(per_update), run_rate=stepped / sum(leg_walls),
+                launches=sum(leg_launches), update_rate=stepped / update_s,
                 first_s=[leg[0] for leg in leg_update_s],
                 median_s=float(np.median([t for leg in leg_update_s for t in leg[1:]])),
                 start_s=[w - sum(leg) for w, leg in zip(leg_walls, leg_update_s)],
                 eval_iters=[r["eval_solver_iters"] for r in rows], window=window, held=held,
-                other_band=other and record_band(other, len(returns)))
+                other_band=other and record_band(other, len(returns)),
+                # per leg: updates, median s per update past the first,
+                # env-steps/s over its wall time and over the updates,
+                # launches, update 0's ep_rew_mean and completions beside the
+                # JAX leg's, and whether update 0 continues the step count of
+                # the leg before it
+                legs=[dict(updates=len(leg), wall=w, median_s=float(np.median(t[1:] or t)),
+                           wall_rate=len(leg) * step / w, update_rate=len(leg) * step / sum(t),
+                           launches=n,
+                           first=(leg[0]["ep_rew_mean"], leg[0]["completions"]),
+                           jax_first=(ref[0]["ep_rew_mean"], ref[0]["completions"]),
+                           continues=k == 0 or leg[0]["timesteps"]
+                           == legs[k - 1][-1]["timesteps"] + step)
+                      for k, (leg, w, t, step, n, ref) in enumerate(
+                          zip(legs, leg_walls, leg_update_s, steps_per, leg_launches, jax_logs))])
 
 
 def seed_pool(group: str) -> dict:
@@ -304,6 +363,18 @@ def main(argv=None):
               f"modulo 2^32; config fields "
               f"unlike the JAX run's, per leg: {config_diff(run)} (declared "
               f"{list(RUNS[run].declared)}); eval solver iterations {s['eval_iters']}")
+        if len(s["legs"]) > 1:
+            for k, leg in enumerate(s["legs"]):
+                print(f"  {run} leg {k + 1}: {leg['updates']} updates in {leg['wall']:.1f} s, "
+                      f"{leg['median_s']:.4f} s per update (median past the first), env-steps/s "
+                      f"{leg['wall_rate']:,.0f} over its wall time and {leg['update_rate']:,.0f} "
+                      "over the updates, kernel-A launches "
+                      f"{leg['launches']:,}; update 0 ep_rew_mean {leg['first'][0]:,.1f}, "
+                      f"completions {leg['first'][1]} (JAX {leg['jax_first'][0]:,.1f}, "
+                      f"{leg['jax_first'][1]})"
+                      + ("" if k == 0 else f"; its step count "
+                         f"{'continues' if leg['continues'] else 'does NOT continue'} "
+                         "the leg before it"))
         if s["window"]:
             lo, hi = s["window"]
             print(f"  {run}: mean ep_rew_mean over updates {lo}-{hi - 1} {s['held'][0]:,.1f} "

@@ -90,7 +90,7 @@ assert rows[0]["final_state"] is not None
 from pathlib import Path
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt, evaluate
 npzs = sorted(Path("gym_puzzles_tpu_torch/policies").glob("*.npz"))
-assert len(npzs) == 12, npzs
+assert len(npzs) == 13, npzs
 for npz in npzs:
     env_id = npz.name.split("_")[0]
     pol = PPO(PPOConfig(env_id=env_id, n_envs=1, n_steps=2, batch_size=2, n_epochs=1),

@@ -109,6 +109,6 @@ def test_trained_policy_records_its_run(name):
                          .read_text())
         assert (row["env_id"], row["trained_timesteps"]) == (policy.env_id, policy.timesteps)
         assert row["image_pipeline"] is None and len(row["returns"]) == 128
-    for leg in range(1, policy.legs + 1):
+    for leg in range(policy.first_leg, policy.legs + 1):
         lines = (records / f"torch_h100_{policy.records}_leg{leg}.jsonl").read_text().splitlines()
         assert lines[0].startswith(f"config: PPOConfig(env_id='{policy.env_id}'")

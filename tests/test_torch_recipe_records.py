@@ -12,6 +12,7 @@ from __future__ import annotations
 import importlib.util
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -69,6 +70,11 @@ def test_cnn_r4_bands(n, band):
     ("hv2", (1_528.1, 2_781.8, 2_777.4, 3_462.0), True, True),
     ("cnn4", (-10_558.8, -9_594.0), True, True),
     ("hv0h2", (-22_502.9, -22_841.4, -22_402.0), False, True),
+    ("hv0c_curB", (-47_907.5, -37_060.3, -36_125.4), True, True),
+    ("hv0c_x2", (-40_868.8, -31_509.2, -26_638.0), True, True),
+    ("hv0c_x3", (-30_592.5, -26_524.6, -24_517.2), True, True),
+    ("hv0c_x4", (-20_738.5, -17_342.8, -16_618.6), True, True),
+    ("hv0c_h2", (-20_125.5, -22_516.9, -18_377.2), True, True),
 ])
 def test_seed_pools(group, means, within, inside):
     """A recipe's runs at several training seeds: their pooled means, the
@@ -121,17 +127,74 @@ def test_h3_counts_past_int32():
         assert row["trained_timesteps"] == port_last
 
 
-@pytest.mark.parametrize("group, missed", [("hv2", ["hv2"]), ("cnn4", []), ("hv0h2", [])])
+@pytest.mark.parametrize("group, missed", [
+    ("hv2", ["hv2"]), ("cnn4", []), ("hv0h2", []), ("hv0c_curB", ["hv0c_curB"]),
+    ("hv0c_x2", ["hv0c_x2", "hv0c3_x2"]), ("hv0c_x3", ["hv0c_x3"]), ("hv0c_x4", ["hv0c_x4"]),
+    ("hv0c_h2", []),
+])
 def test_seed_rule_needs_a_miss(group, missed):
     """The seed-spread rule judges only a run that missed its own band: the
-    Heavy-v2 run at seed 3 did, no Heavy-v0 H2 run and no pixel run did."""
+    Heavy-v2 run at seed 3 did, no Heavy-v0 H2 run and no pixel run did; of
+    the Heavy-v0 curriculum's three chains the first missed at curB, X2, X3
+    and X4 (its H2, from its own X4, did not), the second nowhere, the third
+    at X2 (above its band)."""
     assert report.seed_pool(group)["missed"] == missed
 
 
-@pytest.mark.parametrize("run", ["hv0h2_s0", "hv0h2_s1", "hv0h2_s2", "hv0h3"])
+HV0C = [f"{chain}_{leg[0]}" for chain in ("hv0c", "hv0c2", "hv0c3")
+        for leg in report.HV0C_LEGS]
+
+
+@pytest.mark.parametrize("run", ["hv0h2_s0", "hv0h2_s1", "hv0h2_s2", "hv0h3"] + HV0C)
 def test_graphs_captured_once_per_leg(run):
-    """Every leg of the Heavy-v0 runs (524,288 samples per update, the
-    largest either graph was captured at) captured the rollout's and the
-    learner's graph once each: no recapture mid-leg."""
+    """Every leg of the Heavy-v0 runs (524,288 samples per update in H2 and
+    H3, 1,048,576 in the curriculum's curB and X legs, whose learner graph
+    holds 4 x 64 minibatch steps) captured the rollout's and the learner's
+    graph once each: no recapture mid-leg."""
     for k in range(len(report.RUNS[run].jax_legs)):
         assert report.captures(report.leg_log(run, k + 1)) == {"rollout": 1, "learner": 1}
+
+
+@pytest.mark.parametrize("leg, stats, band, completions", [
+    ("curB", (-39_269.4, 24_115.4, 256), (-45_106.8, -33_432.0), 170),
+    ("x2", (-34_726.4, 23_588.5, 384), (-39_833.5, -29_619.4), 301),
+    ("x3", (-25_632.3, 17_684.1, 384), (-29_461.0, -21_803.6), 316),
+    ("x4", (-17_513.5, 13_888.1, 384), (-20_520.4, -14_506.7), 301),
+    ("h2", (-20_823.9, 15_496.5, 384), (-24_179.0, -17_468.8), 355),
+])
+def test_hv0c_bands(leg, stats, band, completions):
+    """The JAX records of each leg of the Heavy-v0 curriculum (curB's two
+    deterministic eval seeds, X2-X4's and H2's three) give the band each
+    leg of ``hv0c`` is held to over its 384 episodes, and the records'
+    episodes that ended before the 3000-step limit."""
+    records = report.RUNS[f"hv0c_{leg}"].records
+    mean, sd, n_jax, got = report.record_band(records, 384)
+    assert (round(mean, 1), round(sd, 1), n_jax) == stats
+    assert tuple(round(x, 1) for x in got) == band
+    lengths = np.concatenate([json.loads((report.RECORDS / f).read_text())["lengths"]
+                              for f in records])
+    assert int((lengths < 3000).sum()) == completions
+
+
+RESUMED = [run for run in report.RUNS if report.RUNS[run].before]
+
+
+@pytest.mark.parametrize("run", RESUMED)
+def test_resumed_leg_continues_the_one_before(run):
+    """A leg that carries on from the run before it (a whole TrainState by
+    ``--resume``, or the exported policy by ``--resume_policy``) starts at
+    that run's last step count: the CLI's ``resumed from`` / ``warm-started
+    policy from`` line says so, and its update 0 logs that count plus one
+    update's steps, as the JAX run's leg does."""
+    spec = report.RUNS[run]
+    n = len(report.RUNS[spec.before].jax_legs) + 1
+    path = report.leg_log(run, n)
+    before = report.updates(report.leg_log(spec.before, n - 1))[-1]["timesteps"]
+    cfg = report.config(path)
+    first = report.updates(path)[0]["timesteps"]
+    assert first == before + int(cfg["n_envs"]) * int(cfg["n_steps"])
+    start = path.read_text().splitlines()[1]
+    assert start.startswith(("resumed from ", "warm-started policy from "))
+    assert start.endswith(f" at {before} steps")
+    jax = [report.updates(report.RECORDS / f) for f in spec.jax_legs[-2:]]
+    assert jax[1][0]["timesteps"] - jax[0][-1]["timesteps"] == first - before

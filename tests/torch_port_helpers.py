@@ -355,11 +355,12 @@ class TrainedPolicy:
     timesteps: int  # the env steps of the run, every leg (and a warm start's)
     records: str
     legs: int
+    first_leg: int = 1  # the first of its legs in its records (a later leg of a chain)
 
 
-def _trained(env_id, records, timesteps, legs):
-    return TrainedPolicy(POLICY_DIR / f"{env_id}_torch_h100.npz", env_id, timesteps, records,
-                         legs)
+def _trained(env_id, records, timesteps, legs, first_leg=1, tag=""):
+    name = f"{env_id}_{tag}_torch_h100.npz" if tag else f"{env_id}_torch_h100.npz"
+    return TrainedPolicy(POLICY_DIR / name, env_id, timesteps, records, legs, first_leg)
 
 
 # name -> the port's own policy (docs/benchmarks/torch_h100_ppo_recipes.sh, torch_h100_ppo_v0.sh)
@@ -371,6 +372,10 @@ TRAINED_POLICIES = {
     # the H2 leg at seed 0, warm-started from the X4 policy: its steps include
     # the warm start's 1,499,463,680 (docs/benchmarks/torch_h100_ppo_recipes.sh hv0h3)
     "torch_hv0": _trained("MultiRobotPuzzleHeavy-v0", "hv0h2_s0", 1_799_356_416, 1),
+    # X4, the fourth leg of Heavy-v0's curriculum trained from a fresh init,
+    # no JAX weights on its path (docs/benchmarks/torch_h100_ppo_recipes.sh hv0c)
+    "torch_hv0_x4": _trained("MultiRobotPuzzleHeavy-v0", "hv0c_x4", 1_499_463_680, 4,
+                             first_leg=4, tag="x4"),
 }
 
 
