@@ -1,0 +1,9 @@
+"""device_idle_share.ppo: the share of the traced window (whole PPO
+updates) in which no device op ran: 1 - the union of the ops' intervals over
+the window's wall time, in %."""
+
+from portbench import yardstick
+
+
+def read(ctx):
+    return yardstick.idle_share(ctx)
