@@ -203,7 +203,7 @@ from gym_puzzles_tpu_torch.parallel import train_state_specs
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
-from gym_puzzles_tpu_torch.train.ppo import PPO, HParams, PhaseTimer, PPOConfig, _untimed
+from gym_puzzles_tpu_torch.train.ppo import PPO, HParams, PhaseTimer, PPOConfig
 from gym_puzzles_tpu_torch.utils import cuda_graph
 
 ENV_ID = "MultiRobotPuzzle-v0"
@@ -2188,7 +2188,7 @@ def ppo_rate(cfg, mode: str) -> tuple:
     for _ in range(RATE_UPDATES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ts, metrics = algo._train_step(ts, None, None, _untimed, None, rollout_graph,
+        ts, metrics = algo._train_step(ts, None, None, None, None, rollout_graph,
                                        learner_graph)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
@@ -2301,7 +2301,8 @@ def run_learner_graphs(card_line) -> dict:
                   f"each update {', '.join(f'{a} {c}' for a, c in stops)}  [{card_line}]",
                   flush=True)
     # the pixel learner's trace: python -m gym_puzzles_tpu_torch.profile_step --learner --pixels
-    profiles = {"v0 recipe": profile_step.profile_learner(flat_cfg, suffix=f"  [{card_line}]")}
+    profiles = {"v0 recipe": profile_step.profile_learner(flat_cfg, suffix=f"  [{card_line}]",
+                                                         spans=False)}
     print("  graph against eager: PPO env-steps/s past update 1 "
           + "; ".join(f"{name} {rates[(name, 'graphs')]:,.0f} against "
                       f"{rates[(name, 'rollout graph, eager learner')]:,.0f} (eager learner)"
@@ -2473,8 +2474,9 @@ def run_graphs(dev, card_line) -> dict:
     for eager in (False, True, True, False):
         r = run_main_path(dev, card_line, eager=eager)
         runs["eager" if eager else "graph"].append(r["env_steps_per_s"])
-    flat = profile_step.profile_path(PROFILE_STEPS, suffix=f"  [{card_line}]")
-    pixel = profile_step.profile_path(PROFILE_STEPS, pixels=True, suffix=f"  [{card_line}]")
+    flat = profile_step.profile_path(PROFILE_STEPS, suffix=f"  [{card_line}]", spans=False)
+    pixel = profile_step.profile_path(PROFILE_STEPS, pixels=True, suffix=f"  [{card_line}]",
+                                      spans=False)
     print(f"  graph against eager, v0 fused 4096 envs {VI}/{PI}: env-steps/s "
           f"{np.mean(runs['graph']):,.0f} against {np.mean(runs['eager']):,.0f} (each the mean "
           f"of 2 windows, in turns); kernels run per step {flat['graph']['kernels_per_step']:.1f}"

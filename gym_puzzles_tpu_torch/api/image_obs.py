@@ -21,7 +21,6 @@ tick kernel, ``frameskip`` launches per step):
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -33,6 +32,7 @@ from gym_puzzles_tpu_torch.engine.types import Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.render.device import make_device_renderer
 from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
+from gym_puzzles_tpu_torch.utils.profiling import device_span, span
 
 
 class ImageObsEnv:
@@ -172,28 +172,26 @@ class DeviceImageVectorEnv:
         frames[:, -1] = frame
         return ImageVectorState(vec=vec, frames=frames), self.stack_obs(frames)
 
-    def step(self, istate: ImageVectorState, action, params=None, timer=None):
+    def step(self, istate: ImageVectorState, action, params=None):
         """action: [E, act_dim].  Returns (istate, obs, reward [E], done [E],
         info).  The frame is rendered from the state after autoreset; where
         ``done``, the stack starts afresh (zero-padded), elsewhere it shifts
-        by one frame.  ``timer(name)`` (a context manager, e.g. the learner's
-        ``PhaseTimer``) times the whole step -- physics and frames, one graph
-        replay on the card -- as ``env``; ``profile_step.py --pixels`` splits
-        the eager step into physics and render.
+        by one frame.  Spans (``utils/profiling.py``): the host span
+        ``env.step``; on the device the physics' (``VectorEnv``) and
+        ``env.render`` (the frame and the stack).
 
         On a CUDA device this replays the env's CUDA graph of
         :meth:`step_eager` (captured at the first step); on the CPU it is
         :meth:`step_eager`.  What a step returns is its own, as for
         ``VectorEnv.step``."""
-        timer = timer or (lambda _name: contextlib.nullcontext())
-        params = self.default_params() if params is None else params
-        with timer("env"):
+        with span("env.step", step=True):
+            params = self.default_params() if params is None else params
             act = torch.as_tensor(action, dtype=torch.float32, device=self.device)
             if self.device.type != "cuda":
                 return self.step_eager(istate, act, params)
             if self._graph is None:
                 self._graph = GraphedStep(weak_call(self.step_eager), self.device,
-                                          (self.generator,), self.graph_pool)
+                                          (self.generator,), self.graph_pool, name="env.step")
             return self._graph(istate, act, params)
 
     def step_eager(self, istate: ImageVectorState, action, params=None):
@@ -202,8 +200,9 @@ class DeviceImageVectorEnv:
         render and the frame stack.  What the CUDA graph captures, what the
         CPU runs, and what a replay is held against."""
         vec, _obs, reward, done, info = self._env.step_eager(istate.vec, action, params)
-        frame = self.render(vec)
-        older = torch.where(done[:, None, None, None, None], 0, istate.frames[:, 1:])
-        frames = torch.cat([older, frame[:, None]], dim=1)
+        with device_span("env.render", self.device):
+            frame = self.render(vec)
+            older = torch.where(done[:, None, None, None, None], 0, istate.frames[:, 1:])
+            frames = torch.cat([older, frame[:, None]], dim=1)
         return (ImageVectorState(vec=vec, frames=frames), self.stack_obs(frames),
                 reward, done, info)

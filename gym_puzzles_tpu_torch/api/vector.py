@@ -36,6 +36,12 @@ through a device buffer, so a changed ``RewardParams`` needs no new capture.
 Autoreset spawns draw from :attr:`VectorEnv.generator`, registered with the
 graph: a replay draws what the eager step would, and ``reset(seed=)``
 reseeds them.  :meth:`reset` stays eager.
+
+Spans (``utils/profiling.py``, recorded with tracing on): a step is the host
+span ``env.step`` (around the graph's ``graph.inputs`` / ``graph.launch`` /
+``graph.outputs``), and on the device ``env.control``, ``env.tick`` and
+``env.score`` (``envs/base.py``) and ``env.autoreset`` (the spawn and the
+selects).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
 from gym_puzzles_tpu_torch.envs.config import RewardParams
 from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
+from gym_puzzles_tpu_torch.utils.profiling import device_span, span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -132,14 +139,15 @@ class VectorEnv:
         On a CUDA device this replays the env's CUDA graph of
         :meth:`step_eager` (captured at the first step; a capture that fails
         raises); on the CPU it is :meth:`step_eager`."""
-        params = self.default_params() if params is None else params
-        act = torch.as_tensor(action, dtype=torch.float32, device=self.device)
-        if self.device.type != "cuda":
-            return self.step_eager(state, act, params)
-        if self._graph is None:
-            self._graph = GraphedStep(weak_call(self.step_eager), self.device,
-                                      (self.generator,), self.graph_pool)
-        return self._graph(state, act, params)
+        with span("env.step", step=True):
+            params = self.default_params() if params is None else params
+            act = torch.as_tensor(action, dtype=torch.float32, device=self.device)
+            if self.device.type != "cuda":
+                return self.step_eager(state, act, params)
+            if self._graph is None:
+                self._graph = GraphedStep(weak_call(self.step_eager), self.device,
+                                          (self.generator,), self.graph_pool, name="env.step")
+            return self._graph(state, act, params)
 
     def step_eager(self, state: cm.EnvState, action, params: RewardParams | None = None):
         """:meth:`step` as eager PyTorch ops and kernel launches: what the CUDA
@@ -149,9 +157,10 @@ class VectorEnv:
         act = torch.as_tensor(action, dtype=torch.float32, device=self.device).T
         state, obs, reward, done, info = self._step(state, act, params)
         if self.auto_reset:
-            r_state, r_obs = self._reset_batch(params)
-            state = cm.select(done, r_state, state)
-            obs = torch.where(done, r_obs, obs)
+            with device_span("env.autoreset", self.device):
+                r_state, r_obs = self._reset_batch(params)
+                state = cm.select(done, r_state, state)
+                obs = torch.where(done, r_obs, obs)
         return state, obs.T, reward, done, info
 
     @functools.cached_property

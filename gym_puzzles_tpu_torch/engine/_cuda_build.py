@@ -207,6 +207,19 @@ def build_library(name: str, cmd: list, sources: list, key: str,
     return lib, log
 
 
+def load_plain(name: str, source: str, functions: dict, build_dir: Path = BUILD_DIR):
+    """A kernel source with a plain C interface and no world table (the span
+    stamp of ``utils/profiling.py``), built with the kernels' flags and
+    loaded; ``functions`` maps each C function's name to (argtypes, restype)."""
+    path, _log = build_library(name, [_nvcc(), *NVCC_FLAGS], [CSRC / source],
+                               " ".join(NVCC_FLAGS), build_dir)
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in functions.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 KERNELS: dict[str, "CudaKernel"] = {}
 
 

@@ -28,6 +28,7 @@ from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import narrowphase as nph
 from gym_puzzles_tpu_torch.engine import world as eng
 from gym_puzzles_tpu_torch.engine.types import Bodies, Contacts, ShapeTable
+from gym_puzzles_tpu_torch.utils.profiling import device_span
 
 # body f32 input planes (indices into bf, stride B), then output planes
 B_IN = ("velx", "vely", "om", "posx", "posy", "ang",
@@ -160,10 +161,15 @@ def step_fused(table: ShapeTable, bodies: Bodies, contacts: Contacts, force, tor
     position pass advances cached rotations by a 5th-order small-angle step
     (``incremental_trig=True``, the production default) or recomputes
     cos/sin at every pair visit as ``world.step`` does (False).  On CPU
-    tensors this is the plain ``world.step`` (which recomputes)."""
-    if bodies.angle.device.type == "cpu":
-        return eng.step(table, bodies, contacts, force, torque, wake,
-                        dt, vel_iters, pos_iters)
+    tensors this is the plain ``world.step`` (which recomputes).  The device
+    span ``env.tick`` (``utils/profiling.py``) holds the kernel's launch, or
+    the plain tick: not the planes' packing around it."""
+    dev = bodies.angle.device
+    if dev.type == "cpu":
+        with device_span("env.tick", dev):
+            return eng.step(table, bodies, contacts, force, torque, wake,
+                            dt, vel_iters, pos_iters)
     bf, pf, pi = pack(bodies, contacts, force, torque, wake)
-    bfo, pfo, pio = launch(table, bf, pf, pi, dt, vel_iters, pos_iters, incremental_trig)
+    with device_span("env.tick", dev):
+        bfo, pfo, pio = launch(table, bf, pf, pi, dt, vel_iters, pos_iters, incremental_trig)
     return unpack(table, bfo, pfo, pio)

@@ -17,6 +17,7 @@ from gym_puzzles_tpu_torch.engine import world as eng
 from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs import layout as lay
 from gym_puzzles_tpu_torch.envs.config import EnvConfig, RewardParams
+from gym_puzzles_tpu_torch.utils.profiling import device_span
 
 
 class PuzzleEnvLogic:
@@ -109,24 +110,27 @@ class PuzzleEnvLogic:
     def step_fused(self, state: cm.EnvState, action, params: RewardParams):
         """Batched step (action [act_dim, E]) with each engine tick in the
         fused CUDA kernel on the card, or the plain ``world.step`` on the
-        CPU.  Returns (state, obs [obs_dim, E], reward, done, info)."""
-        bodies, force, torque, wake = self._control(state, action)
-        bodies, contacts, goal_contact, wall_contact = cm.physics_fused(
+        CPU.  Returns (state, obs [obs_dim, E], reward, done, info).  Device
+        spans: ``env.control``, ``env.tick`` at each tick (``step_cuda``),
+        ``env.score``."""
+        return self._step_with(state, action, params, cm.physics_fused)
+
+    def _step_with(self, state: cm.EnvState, action, params: RewardParams, physics):
+        dev = action.device
+        with device_span("env.control", dev):
+            bodies, force, torque, wake = self._control(state, action)
+        bodies, contacts, goal_contact, wall_contact = physics(
             self.layout, self.cfg, bodies, state.contacts, force, torque, wake,
             state.goal_contact, state.wall_contact,
         )
-        return self._finish(state, bodies, contacts, goal_contact, wall_contact, params)
+        with device_span("env.score", dev):
+            return self._finish(state, bodies, contacts, goal_contact, wall_contact, params)
 
     def step_batched(self, state: cm.EnvState, action, params: RewardParams):
         """:meth:`step_fused` with each engine tick staged instead: the
         narrow phase and bookkeeping as PyTorch ops around the CUDA
         contact-solve kernel (the plain solve on the CPU)."""
-        bodies, force, torque, wake = self._control(state, action)
-        bodies, contacts, goal_contact, wall_contact = cm.physics_batched(
-            self.layout, self.cfg, bodies, state.contacts, force, torque, wake,
-            state.goal_contact, state.wall_contact,
-        )
-        return self._finish(state, bodies, contacts, goal_contact, wall_contact, params)
+        return self._step_with(state, action, params, cm.physics_batched)
 
     def _finish(self, state, bodies, contacts, goal_contact, wall_contact,
                 params: RewardParams):

@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from gym_puzzles_tpu_torch.api.vector import resolve_device
-from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig, TrainState, _untimed
+from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig, TrainState
 
 # TrainState fields that each rank holds for its own envs (dotted: a field
 # of the normalizer); every other field is replicated
@@ -189,7 +189,7 @@ class DistributedPPO:
             normalizer=full.normalizer.replace(returns=take(full.normalizer.returns)),
             generator=gen, env_generator=env_gen)
 
-    def train_step(self, ts: TrainState, noise=None, perms=None, timer=_untimed):
+    def train_step(self, ts: TrainState, noise=None, perms=None, timer=None):
         """One update of every rank (``PPO.train_step`` over the mesh);
         ``noise`` and ``perms`` are this rank's."""
         return self.ppo.train_step(ts, noise, perms, timer, mesh=self.mesh)

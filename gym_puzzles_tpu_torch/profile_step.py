@@ -1,9 +1,9 @@
-"""Where the port's main path spends the card's time, its CUDA graph beside
-its eager body.
+"""Where the port's main path spends the card's time: its CUDA graph beside
+its eager body, and the graph's replay split by the program's spans.
 
     python -m gym_puzzles_tpu_torch.profile_step [steps] [--env ID] [--backend fused|pallas]
-        [--pixels]
-    python -m gym_puzzles_tpu_torch.profile_step --learner [--pixels]
+        [--pixels] [--out DIR]
+    python -m gym_puzzles_tpu_torch.profile_step --learner [--pixels] [--out DIR]
 
 Runs ``make(ID, num_envs=4096, backend=...)`` on the card (default
 MultiRobotPuzzle-v0, the fused backend; reset, 10 warm-up steps of random
@@ -16,24 +16,39 @@ device-kernel times over the wall time), the device kernels run per step,
 the host's launch calls per step (kernel launches, graph launches, copies
 and fills) and graph launches per step, and the top kernels by device time.
 With ``--pixels`` the env is the image env of the pixel recipe
-(``DeviceImageVectorEnv``, 256 envs, 60/20, frameskip 4), and the eager
-physics (``frameskip`` ticks and the env logic) and the render of one state
-are traced alone as well: a replay cannot be split.  The last line is the
-same as one JSON object.  Needs a CUDA device.
+(``DeviceImageVectorEnv``, 256 envs, 60/20, frameskip 4).
 
-With ``--learner`` it traces PPO at the v0 recipe (``V0_CONFIG`` with
-``V0_OVERRIDES``: 4096 envs, n_steps 64, batch 8192, 4 epochs) or, with
+Then the replay split by the spans of ``utils/profiling.py`` (tracing on,
+the graph captured anew with the stamps inside): per span, ms per step in
+all and in itself, on the host or on the device (kernel A's launches
+``env.tick`` beside the env's logic and, with ``--pixels``, the frame
+``env.render``);
+the same steps with the profiler too, written as one Chrome trace (to
+``--out``, default a fresh temporary directory) with the clock fit's
+residual, the idle time put down to the innermost host span and each host
+span's device extent (its first launched op's start to its last one's end)
+beside the device spans of the same steps; the cost of
+tracing (wall ms per step off and on, in turns, no profiler; device ms per
+step off and on, profiled); and each capture's kernel nodes.  The last line
+is the same as one JSON object.  Needs a CUDA device.
+
+With ``--learner`` it does the same for PPO at the v0 recipe (``V0_CONFIG``
+with ``V0_OVERRIDES``: 4096 envs, n_steps 64, batch 8192, 4 epochs) or, with
 ``--pixels``, at the pixel recipe (``PIXEL_RECIPE``), after two updates
 (both CUDA graphs captured): the learner alone (bootstrap value, GAE, the
 minibatch epochs and metrics on one rollout's Transition) as its graph's
 replay and as its eager body, then whole updates as both graphs and as the
-rollout graph with the eager learner; the same numbers per update.
+rollout graph with the eager learner, the same numbers per update; then
+whole updates split by the spans (the learner's ``learn.grad`` against
+``learn.adam``), traced, and the cost of tracing.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
+import tempfile
 import time
 from pathlib import Path
 
@@ -43,7 +58,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from gym_puzzles_tpu_torch import make
 from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
-from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig, _untimed
+from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
+from gym_puzzles_tpu_torch.utils import profiling
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
@@ -59,6 +75,7 @@ PIXEL_RECIPE = dict(env_id=ENV_ID, policy="cnn", n_envs=PIXEL_ENVS, n_steps=32, 
                     n_epochs=2, learning_rate=2.5e-4, ent_coef=0.005, target_kl=0.01,
                     normalize=True, env_backend="fused", velocity_iters=PIXEL_ITERS[0],
                     position_iters=PIXEL_ITERS[1], seed=0)
+SPLIT_UPDATES = 2  # whole updates split by the spans in profile_learner
 # the host's runtime calls that put work on a stream
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -106,9 +123,76 @@ def report(name: str, t: dict, suffix: str = "", unit: str = "step"):
         print(f"  {k['device_ms']:10.3f} ms  x{k['count']:<6d} {k['name']}", flush=True)
 
 
+def wall_ms(fn, steps: int) -> float:
+    """Wall ms per step of ``fn(k)`` for k < ``steps``, to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(steps):
+        fn(k)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def split(fn, steps: int, suffix: str = "", unit: str = "step") -> dict:
+    """The spans of ``fn(k)`` (module docstring) through
+    ``profiling.traced_calls``: ``steps`` calls timed with tracing on after
+    the one that captures the graphs with the stamps, then as many profiled
+    too, into a fresh temporary directory.  -> ``spans`` (per name: clock, ms
+    per step in all and in itself, count per step, of the timed calls),
+    ``fit``, ``idle`` and ``extents`` (per host span, ms per step from its
+    first launched device op's start to its last one's end) of the profiled
+    calls, ``trace`` (the Chrome trace's path), ``cost`` (wall ms per step
+    off / on in turns, no profiler; device ms per step off / on, profiled),
+    ``captures`` (kernel nodes of each graph captured here), printed."""
+    first = len(profiling.CAPTURES)
+    off = [wall_ms(fn, steps)]
+    out_dir = tempfile.mkdtemp(prefix="profile-step-")
+    tr, wall_s, tb = profiling.traced_calls(fn, steps, steps, out_dir)
+    on = [1e3 * wall_s / steps]
+    with profiling.tracing():
+        on.append(wall_ms(fn, steps))
+    fn(0)  # captures the graphs back without the stamps
+    off.append(wall_ms(fn, steps))
+    device_off = trace(fn, steps)["device_ms_per_step"]
+    n = max(1, tr.steps)
+    spans = {name: dict(clock=r["clock"], ms_per_step=r["total_ns"] * 1e-6 / n,
+                        self_ms_per_step=r["self_ns"] * 1e-6 / n, count_per_step=r["count"] / n)
+             for name, r in tr.by_name().items()}
+    profiled = {name: r["total_ns"] * 1e-6 / steps for name, r in tb.by_name().items()
+                if r["clock"] == "device"}
+    out = dict(spans=spans, fit=tb.fit, idle=tb.idle[:10], trace=f"{out_dir}/trace.json",
+               extents={k: v * 1e-3 / steps for k, v in tb.extents.items()},
+               cost=dict(wall_off_ms=off, wall_on_ms=on, device_off_ms=device_off,
+                         device_on_ms=tb.device_us * 1e-3 / steps),
+               captures=[dict(name=c.name, traced=c.traced, kernel_nodes=c.kernel_nodes,
+                              nodes=c.nodes, seconds=c.seconds)
+                         for c in profiling.CAPTURES[first:]])
+    print(f"  spans per {unit} over {steps} {unit}s (tracing on, no profiler):{suffix}",
+          flush=True)
+    for name, r in sorted(spans.items(), key=lambda kv: (kv[1]["clock"], -kv[1]["ms_per_step"])):
+        print(f"    {r['clock']:6s} {name:16s} {r['ms_per_step']:10.4f} ms "
+              f"({r['self_ms_per_step']:.4f} self) x{r['count_per_step']:g}", flush=True)
+    c = out["cost"]
+    print(f"  tracing cost per {unit}: wall {c['wall_off_ms']} ms off, {c['wall_on_ms']} ms on "
+          f"(in turns, no profiler); device {c['device_off_ms']:.4f} ms off, "
+          f"{c['device_on_ms']:.4f} ms on (profiled){suffix}", flush=True)
+    print(f"  profiled, per {unit}: device extent of each host span's launches "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(out["extents"].items()))
+          + "; device spans " + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(profiled.items()))
+          + suffix, flush=True)
+    print(f"  clock fit {tb.fit}; idle by innermost host span "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in out["idle"]) + f"; {out['trace']}"
+          + suffix, flush=True)
+    print("  captures " + ", ".join(f"{c['name']} traced={c['traced']} {c['kernel_nodes']} "
+                                    f"kernel nodes of {c['nodes']}, {c['seconds']:.3f} s"
+                                    for c in out["captures"]) + suffix, flush=True)
+    return out
+
+
 def profile_path(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
-                 pixels: bool = False, suffix: str = "") -> dict:
-    """The traces of the module docstring, printed; returns them."""
+                 pixels: bool = False, suffix: str = "", spans: bool = True) -> dict:
+    """The traces of the module docstring, printed; returns them.  ``spans``:
+    the split by the spans too (``chip_smoke.py`` leaves it out)."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     if pixels:
@@ -127,7 +211,7 @@ def profile_path(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
     def run(step):
         def fn(k):
             nonlocal state
-            state, *_ = step(state, acts[k])
+            state, *_ = step(state, acts[k % steps])
         return fn
 
     out = dict(device=torch.cuda.get_device_name(0), env_id=env_id, backend=backend,
@@ -136,13 +220,8 @@ def profile_path(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
     name = f"{env_id} backend={backend}{' pixels' if pixels else ''}: {steps} traced steps x {E} envs"
     report(f"{name}, CUDA graph replays", out["graph"], suffix)
     report(f"{name}, eager body", out["eager"], suffix)
-    if pixels:
-        vec = env._env  # the physics of the image step, eager
-        out["physics"] = trace(lambda k: vec.step_eager(state.vec, acts[k]), steps)
-        out["render"] = trace(lambda _k: env.render(state.vec), steps)
-        report(f"  physics alone (eager, {env.cfg.frameskip} ticks), {E} envs", out["physics"],
-               suffix)
-        report(f"  render alone, {E} envs", out["render"], suffix)
+    if spans:
+        out["split"] = split(run(env.step), steps, suffix)
     return out
 
 
@@ -153,9 +232,10 @@ def recipe(pixels: bool = False) -> PPOConfig:
     return PPOConfig.from_reference_json(json.loads(V0_CONFIG.read_text()), **V0_OVERRIDES)
 
 
-def profile_learner(cfg: PPOConfig, suffix: str = "") -> dict:
+def profile_learner(cfg: PPOConfig, suffix: str = "", spans: bool = True) -> dict:
     """The learner traces of the module docstring for ``cfg``, one update
-    each, printed (per update); returns them."""
+    each, and (``spans``) the split of :data:`SPLIT_UPDATES` whole updates,
+    printed (per update); returns them."""
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     algo = PPO(cfg)
@@ -163,7 +243,7 @@ def profile_learner(cfg: PPOConfig, suffix: str = "") -> dict:
     for _ in range(2):
         ts, _metrics = algo.train_step(ts)
     start = ts
-    ts, traj = algo._rollout(start, None, _untimed, None, graphed=True)
+    ts, traj = algo._rollout(start, None, None, None, graphed=True)
     torch.cuda.synchronize()
     out = dict(device=torch.cuda.get_device_name(0), env_id=cfg.env_id, policy=cfg.policy,
                num_envs=cfg.n_envs, n_steps=cfg.n_steps, batch_size=cfg.batch_size,
@@ -175,7 +255,7 @@ def profile_learner(cfg: PPOConfig, suffix: str = "") -> dict:
 
     def update(learner_graph):
         def fn(_k):
-            state["ts"] = algo._train_step(state["ts"], None, None, _untimed, None, True,
+            state["ts"] = algo._train_step(state["ts"], None, None, None, None, True,
                                            learner_graph)[0]
         return fn
 
@@ -188,13 +268,20 @@ def profile_learner(cfg: PPOConfig, suffix: str = "") -> dict:
                       ("update_graphs", "one update, rollout and learner graphs"),
                       ("update_learner_eager", "one update, rollout graph, eager learner")):
         report(f"{name}: {what}", out[key], suffix, unit="update")
+    if spans:
+        out["split"] = split(update(True), SPLIT_UPDATES, suffix, unit="update")
     return out
 
 
 def main(steps: int = 20, env_id: str = ENV_ID, backend: str = "fused",
-         pixels: bool = False, learner: bool = False) -> dict:
-    out = (profile_learner(recipe(pixels)) if learner
-           else profile_path(steps, env_id, backend, pixels))
+         pixels: bool = False, learner: bool = False, out_dir: str | None = None) -> dict:
+    """``out_dir``: where the split's Chrome trace is moved to."""
+    out = profile_learner(recipe(pixels)) if learner else profile_path(steps, env_id, backend,
+                                                                        pixels)
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        out["split"]["trace"] = str(shutil.move(out["split"]["trace"],
+                                                Path(out_dir) / "trace.json"))
     print(json.dumps(out))
     return out
 
@@ -209,5 +296,8 @@ if __name__ == "__main__":
     parser.add_argument("--learner", action="store_true",
                         help="PPO updates at the v0 recipe (or, with --pixels, the pixel "
                              "recipe): the learner and whole updates, graph and eager")
+    parser.add_argument("--out", default=None,
+                        help="directory of the Chrome trace with the spans (default: a fresh "
+                             "temporary directory)")
     args = parser.parse_args()
-    main(args.steps, args.env, args.backend, args.pixels, args.learner)
+    main(args.steps, args.env, args.backend, args.pixels, args.learner, args.out)

@@ -38,6 +38,17 @@ the normalizer and episode statistics once per update, the gradients and the
 KL in one all-reduce per minibatch, the loss metrics and completions at the
 end.  With ``mesh=None`` nothing is synced.
 
+Spans (``utils/profiling.py``, recorded with tracing on): an update is the
+host span ``ppo.update``, holding ``ppo.noise`` (the action noise's draw),
+``ppo.rollout`` and ``ppo.learner`` (each around its graph's replay) and
+``ppo.generator`` (the learner generator's state, to the graph and back); on
+the device ``rollout.policy`` (normalize, forward, sample, log-prob) and the
+env's spans at each rollout step, then ``learn.gae`` (bootstrap and GAE),
+per minibatch ``learn.grad`` (gather, forward, loss, backward) and
+``learn.adam`` (clip, Adam, the stop's masks, the KL test), and
+``learn.metrics``.  :class:`PhaseTimer` times the ``ppo.rollout`` and
+``ppo.learner`` spans' blocks, tracing on or off.
+
 Hyperparameter names and defaults mirror train/configs/ppo-mrp-*.json, so
 the reference's configs load directly.
 """
@@ -63,6 +74,7 @@ from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
                                                   gaussian_entropy, gaussian_log_prob)
 from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, as_device_scalars, weak_call
+from gym_puzzles_tpu_torch.utils.profiling import device_span, span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 
@@ -220,7 +232,10 @@ class PhaseTimer:
     one graph replay on the card; ``update``: the learner -- bootstrap value,
     GAE, epochs and metrics --, one more replay), for measurement only: each
     part starts and ends with a device synchronise, which the untimed path
-    never does."""
+    never does.  It times the blocks of the spans ``ppo.rollout`` and
+    ``ppo.learner`` (``profiling.span(name, timer)``)."""
+
+    PHASES = {"ppo.rollout": "rollout", "ppo.learner": "update"}
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -231,16 +246,13 @@ class PhaseTimer:
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
-    def __call__(self, name):
+    def __call__(self, span_name):
+        phase = self.PHASES[span_name]
         self._sync()
         t0 = time.perf_counter()
         yield
         self._sync()
-        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
-
-
-def _untimed(name):
-    return contextlib.nullcontext()
+        self.seconds[phase] = self.seconds.get(phase, 0.0) + time.perf_counter() - t0
 
 
 def compute_gae(traj: Transition, last_value, gamma, gae_lambda):
@@ -424,7 +436,7 @@ class PPO:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def rollout(self, ts: TrainState, noise=None, timer=_untimed, mesh=None):
+    def rollout(self, ts: TrainState, noise=None, timer=None, mesh=None):
         """``n_steps`` env steps -> (ts with the env, normalizer and episode
         statistics advanced, Transition, bootstrap value [E]).
 
@@ -443,21 +455,19 @@ class PPO:
         env's generator, registered with it).  The Transition it returns is
         then the graph's own buffer, overwritten by the learner's next
         rollout: clone it to keep it.  On the CPU this is
-        :meth:`rollout_eager`.  ``timer`` times the steps as ``rollout``, the
-        bootstrap value as ``policy``."""
+        :meth:`rollout_eager`.  ``timer`` (a :class:`PhaseTimer`) times the
+        steps as ``rollout``."""
         ts, traj = self._rollout(ts, noise, timer, mesh, graphed=self.device.type == "cuda")
-        with timer("policy"):
-            last_value = self.bootstrap_value(ts.params, ts.normalizer, ts.last_obs)
+        last_value = self.bootstrap_value(ts.params, ts.normalizer, ts.last_obs)
         return ts, traj, last_value
 
     @torch.no_grad()
-    def rollout_eager(self, ts: TrainState, noise=None, timer=_untimed, mesh=None):
+    def rollout_eager(self, ts: TrainState, noise=None, timer=None, mesh=None):
         """:meth:`rollout` with its steps run as eager PyTorch ops and kernel
         launches, into a Transition of its own: what the CPU runs and what
         the card's graph replay is held against."""
         ts, traj = self._rollout(ts, noise, timer, mesh, graphed=False)
-        with timer("policy"):
-            last_value = self.bootstrap_value(ts.params, ts.normalizer, ts.last_obs)
+        last_value = self.bootstrap_value(ts.params, ts.normalizer, ts.last_obs)
         return ts, traj, last_value
 
     @torch.no_grad()
@@ -465,17 +475,19 @@ class PPO:
         cfg, dev = self.cfg, self.device
         T, E = cfg.n_steps, cfg.n_envs
         if noise is None:
-            noise = torch.randn((T, E, self.act_dim), generator=ts.generator, device=dev)
+            with span("ppo.noise"):
+                noise = torch.randn((T, E, self.act_dim), generator=ts.generator, device=dev)
         carry = (ts.normalizer, ts.vstate, ts.last_obs, ts.ep_return, ts.ep_len,
                  ts.stat_return, ts.stat_count)
-        with timer("rollout"):
+        with span("ppo.rollout", timer):
             if graphed:
                 if self._rollout_graph is None:
                     traj = self.new_transition()
                     steps = weak_call(self.rollout_steps)
                     step = lambda c, p, n, e: (steps(c, p, n, e, traj),)  # noqa: E731
                     self._rollout_graph = (GraphedStep(step, dev, (self.env.generator,),
-                                                       self.env.graph_pool), traj)
+                                                       self.env.graph_pool, name="ppo.rollout"),
+                                           traj)
                 graph, traj = self._rollout_graph
                 (carry,) = graph(carry, ts.params, noise, ts.env_params)
             else:
@@ -521,15 +533,16 @@ class PPO:
         advanced out.  What the CUDA graph captures and the CPU runs."""
         norm, vstate, obs, ep_ret, ep_len, stat_r, stat_c = carry
         for t in range(self.cfg.n_steps):
-            if self.use_obs_norm:
-                norm, n_obs = nrm.normalize_obs(norm, obs, update=True)
-            else:
-                n_obs = obs
-            mean, log_std, value = self.apply(params, n_obs)
-            action = mean + torch.exp(log_std) * noise[t]
-            traj.obs[t], traj.action[t], traj.value[t] = n_obs, action, value
-            traj.log_prob[t] = gaussian_log_prob(mean, log_std, action)
-            clipped = torch.clamp(action, -1.0, 1.0)
+            with device_span("rollout.policy", self.device):
+                if self.use_obs_norm:
+                    norm, n_obs = nrm.normalize_obs(norm, obs, update=True)
+                else:
+                    n_obs = obs
+                mean, log_std, value = self.apply(params, n_obs)
+                action = mean + torch.exp(log_std) * noise[t]
+                traj.obs[t], traj.action[t], traj.value[t] = n_obs, action, value
+                traj.log_prob[t] = gaussian_log_prob(mean, log_std, action)
+                clipped = torch.clamp(action, -1.0, 1.0)
             vstate, obs, reward, done, info = self.env.step_eager(vstate, clipped, env_params)
             if self.cfg.normalize:
                 norm, n_reward = nrm.normalize_reward(norm, reward, done, update=True)
@@ -596,7 +609,7 @@ class PPO:
         params, opt = carry
         hp = as_device_scalars(hp, dev)
         world = 1 if mesh is None else mesh.world_size
-        with torch.no_grad():
+        with torch.no_grad(), device_span("learn.gae", dev):
             last_value = self.bootstrap_value(params, norm, last_obs)
             advantages, returns = compute_gae(traj, last_value, hp.gamma, hp.gae_lambda)
         total = traj.done.numel()
@@ -610,15 +623,16 @@ class PPO:
         idxs = perms[:, : n_minibatch * mb_size].reshape(cfg.n_epochs * n_minibatch, mb_size)
         params, opt, stop, kl_last, losses = self.minibatch_steps(
             params, opt, (obs, action, old_lp, adv, ret), idxs, hp, mesh)
-        means = losses.mean(dim=0)
-        completions = (traj.status == 3).sum()
-        if mesh is not None:
-            (means,) = mesh.mean([means])
-            (completions,) = mesh.sum([completions])
-        stat_return0, stat_count0, timesteps0, stat_r, stat_c = stats
-        completed = stat_c - stat_count0
-        mean_ret = torch.where(completed > 0, (stat_r - stat_return0)
-                               / torch.clamp_min(completed, 1.0), float("nan"))
+        with device_span("learn.metrics", dev):
+            means = losses.mean(dim=0)
+            completions = (traj.status == 3).sum()
+            if mesh is not None:
+                (means,) = mesh.mean([means])
+                (completions,) = mesh.sum([completions])
+            stat_return0, stat_count0, timesteps0, stat_r, stat_c = stats
+            completed = stat_c - stat_count0
+            mean_ret = torch.where(completed > 0, (stat_r - stat_return0)
+                                   / torch.clamp_min(completed, 1.0), float("nan"))
         metrics = {"loss": means[0], "policy_loss": means[1], "value_loss": means[2],
                    "entropy": means[3], "approx_kl": kl_last, "kl_stopped": stop,
                    "ep_rew_mean": mean_ret, "episodes": completed, "completions": completions,
@@ -640,13 +654,14 @@ class PPO:
         params = {k: v.detach().requires_grad_() for k, v in params.items()}
         losses = []
         for idx in idxs:
-            loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx], old_lp[idx],
-                                               adv[idx], ret[idx], hp)
-            grads = list(torch.autograd.grad(loss, list(params.values())))
+            with device_span("learn.grad", dev):
+                loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx], old_lp[idx],
+                                                   adv[idx], ret[idx], hp)
+                grads = list(torch.autograd.grad(loss, list(params.values())))
             if mesh is not None:
                 *grads, kl = mesh.mean(grads + [kl])
-            new_params, new_opt = adam_step(params, grads, opt, hp)
-            with torch.no_grad():
+            with torch.no_grad(), device_span("learn.adam", dev):
+                new_params, new_opt = adam_step(params, grads, opt, hp)
                 use = ~stop
                 keep = lambda new, old: {k: torch.where(use, new[k], old[k])  # noqa: E731
                                          for k in old}
@@ -704,11 +719,11 @@ class PPO:
             body = weak_call(self.learn_steps)
             fn = lambda c, n, o, h, p, s: body(c, n, o, h, p, s, traj, gen, mesh)  # noqa: E731
             counters = () if mesh is None else (mesh,)
-            self._learner_graph = (mesh, GraphedStep(fn, self.device, (gen,),
-                                                     self.env.graph_pool, counters), gen)
+            self._learner_graph = (mesh, GraphedStep(fn, self.device, (gen,), self.env.graph_pool,
+                                                     counters, name="ppo.learner"), gen)
         return self._learner_graph[1:]
 
-    def train_step(self, ts: TrainState, noise=None, perms=None, timer=_untimed, mesh=None):
+    def train_step(self, ts: TrainState, noise=None, perms=None, timer=None, mesh=None):
         """One update: rollout, then the learner (bootstrap value, GAE,
         epochs, metrics) -> (ts, metrics).  ``metrics`` holds tensors on the
         device (``kl_stopped`` a bool): ``ep_rew_mean`` (NaN when no episode
@@ -734,7 +749,7 @@ class PPO:
         learner_graph = cuda and (mesh is None or mesh.backend != "gloo")
         return self._train_step(ts, noise, perms, timer, mesh, cuda, learner_graph)
 
-    def train_step_eager(self, ts: TrainState, noise=None, perms=None, timer=_untimed,
+    def train_step_eager(self, ts: TrainState, noise=None, perms=None, timer=None,
                          mesh=None):
         """:meth:`train_step` with both parts run as eager ops and kernel
         launches: what the CPU runs and what the card's replays are held
@@ -743,10 +758,11 @@ class PPO:
 
     def _train_step(self, ts, noise, perms, timer, mesh, rollout_graph: bool,
                     learner_graph: bool):
-        start = ts
-        ts, traj = self._rollout(ts, noise, timer, mesh, rollout_graph)
-        with timer("update"):
-            return self._learn(start, ts, traj, perms, mesh, learner_graph)
+        with span("ppo.update", step=True):
+            start = ts
+            ts, traj = self._rollout(ts, noise, timer, mesh, rollout_graph)
+            with span("ppo.learner", timer):
+                return self._learn(start, ts, traj, perms, mesh, learner_graph)
 
     def _learn(self, start, ts, traj, perms, mesh, graphed: bool):
         """The learner on ``ts`` after a rollout from ``start`` into ``traj``:
@@ -758,9 +774,11 @@ class PPO:
             raise ValueError("the learner's graph reads the rollout graph's Transition")
         carry, args = self.learner_inputs(start, ts, perms)
         graph, gen = self._learner(mesh)
-        gen.set_state(ts.generator.get_state())
+        with span("ppo.generator"):
+            gen.set_state(ts.generator.get_state())
         (params, opt), metrics = graph(carry, *args)
-        ts.generator.set_state(gen.get_state())
+        with span("ppo.generator"):
+            ts.generator.set_state(gen.get_state())
         return ts.replace(params=params, opt_state=opt, timesteps=metrics["timesteps"]), metrics
 
     @property

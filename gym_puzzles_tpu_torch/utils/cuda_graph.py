@@ -40,6 +40,16 @@ so a buffer that one graph fills and another reads (the rollout's
 function through its closure, never through an argument: an argument slot
 would see the same tensor at the same version and skip the copy.
 
+Tracing (``utils/profiling.py``) is part of a graph's signature: a graph
+captured with tracing off holds no stamp and no op of it; the first call with
+tracing on captures anew, with the device spans' stamps inside, whose count
+each replay adds to the stamps launched.  A call's host time is split into the
+host spans ``graph.inputs`` (flatten, signature, copy-in, table re-upload;
+``graph.capture`` inside it when the call captures), ``graph.launch`` (the
+replay) and ``graph.outputs`` (the clone and unflatten).  Each capture is
+counted, tracing on or off (``profiling.CAPTURES``): its name, the seconds of
+its warm-up and capture, and the kernel nodes of the graph.
+
 Anything that cannot be captured -- a host read, a host-to-device copy from
 pageable memory, a world table not uploaded, a collective staged through the
 host -- raises at capture with CUDA's or PyTorch's reason.  A non-tensor leaf
@@ -49,8 +59,10 @@ a call with another value, or with other shapes, captures anew.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
+import time
 import weakref
 
 import torch
@@ -58,6 +70,7 @@ import torch
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine.types import DeviceScalars
 from gym_puzzles_tpu_torch.envs.config import RewardParams
+from gym_puzzles_tpu_torch.utils import profiling
 
 ALIGN = 512  # the caching allocator's alignment: reductions read the same layout
 
@@ -262,6 +275,32 @@ class _Capture:
     launches: dict  # kernel name -> launches per replay
     calls: list  # per counter, the calls per replay
     worlds: list  # (CudaKernel, ShapeTable) whose table the graph's launches read
+    stamps: int  # the spans' device stamps per replay (0 unless captured with tracing on)
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of a graph captured with ``keep_graph=True``,
+    read through the driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    vp, size = ctypes.c_void_p, ctypes.c_size_t
+    cuda.cuGraphGetNodes.argtypes = [vp, ctypes.POINTER(vp), ctypes.POINTER(size)]
+    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    cuda.cuGraphNodeGetType.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphNodeGetType.restype = ctypes.c_int
+    handle, n = vp(graph.raw_cuda_graph()), size(0)
+    err = cuda.cuGraphGetNodes(handle, None, ctypes.byref(n))
+    nodes = (vp * n.value)()
+    err = err or cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        err = err or cuda.cuGraphNodeGetType(node, ctypes.byref(kind))
+        kernels += kind.value == _CU_GRAPH_NODE_TYPE_KERNEL
+    if err != 0:
+        raise RuntimeError(f"reading a CUDA graph's nodes failed: CUDA driver error {err}")
+    return kernels, n.value
 
 
 class GraphedStep:
@@ -271,10 +310,12 @@ class GraphedStep:
     the same owner (``torch.cuda.graph_pool_handle()``), replayed one at a
     time on one stream.  ``counters`` are objects whose ``calls`` attribute
     counts host-side calls ``fn`` makes (a mesh's all-reduces): each replay
-    adds the calls its capture made."""
+    adds the calls its capture made.  ``name`` names its captures in
+    ``profiling.CAPTURES``."""
 
-    def __init__(self, fn, device, generators=(), pool=None, counters=()):
+    def __init__(self, fn, device, generators=(), pool=None, counters=(), name: str = "graph"):
         self.fn = fn
+        self.name = name
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph runs on a CUDA device, got {self.device}")
@@ -296,32 +337,38 @@ class GraphedStep:
         self._cap = None
 
     def __call__(self, carry, *args):
-        carry_leaves, carry_spec = flatten(carry)
-        arg_leaves, arg_spec = flatten(args)
-        signature = (carry_spec, arg_spec)
-        if self._cap is None or self._cap.signature != signature:
-            self._cap = None  # the old graph's memory returns to the pool first
-            self._cap = self._capture(carry, args, signature)
-            self.captures += 1
-        cap = self._cap
         with torch.cuda.device(self.device):
-            _load_slots(cap.carry_slots + cap.arg_slots, carry_leaves + arg_leaves)
-            stream = torch.cuda.current_stream(self.device).cuda_stream
-            for kernel, table in cap.worlds:
-                kernel.set_world(table, self.device, stream)
-            cap.graph.replay()
-            for name, n in cap.launches.items():
-                cb.KERNELS[name].launches += n
-            for counter, n in zip(self.counters, cap.calls):
-                counter.calls += n
-            snap = cap.out_buffer.snapshot()
-        for slot, t in zip(cap.carry_slots, snap[:cap.n_carry]):
-            slot.hold(t)
-        return unflatten(cap.out_spec, snap)
+            with profiling.span("graph.inputs"):
+                carry_leaves, carry_spec = flatten(carry)
+                arg_leaves, arg_spec = flatten(args)
+                signature = (carry_spec, arg_spec, profiling.is_tracing())
+                if self._cap is None or self._cap.signature != signature:
+                    self._cap = None  # the old graph's memory returns to the pool first
+                    with profiling.span("graph.capture"):
+                        self._cap = self._capture(carry, args, signature)
+                    self.captures += 1
+                cap = self._cap
+                _load_slots(cap.carry_slots + cap.arg_slots, carry_leaves + arg_leaves)
+                stream = torch.cuda.current_stream(self.device).cuda_stream
+                for kernel, table in cap.worlds:
+                    kernel.set_world(table, self.device, stream)
+            with profiling.span("graph.launch"):
+                cap.graph.replay()
+                profiling.advance(cap.stamps, self.device)
+            with profiling.span("graph.outputs"):
+                for name, n in cap.launches.items():
+                    cb.KERNELS[name].launches += n
+                for counter, n in zip(self.counters, cap.calls):
+                    counter.calls += n
+                snap = cap.out_buffer.snapshot()
+                for slot, t in zip(cap.carry_slots, snap[:cap.n_carry]):
+                    slot.hold(t)
+                return unflatten(cap.out_spec, snap)
 
     # ------------------------------------------------------------------
     def _capture(self, carry, args, signature) -> _Capture:
         dev = self.device
+        t0 = time.perf_counter()
         with torch.cuda.device(dev):
             carry_leaves, carry_spec = flatten(carry)
             arg_leaves, arg_spec = flatten(args)
@@ -363,7 +410,8 @@ class GraphedStep:
             torch.cuda.synchronize(dev)
             before = {name: k.launches for name, k in cb.KERNELS.items()}
 
-            graph = torch.cuda.CUDAGraph()
+            stamps0 = profiling.launched()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept to count its nodes
             for g in self.generators:
                 graph.register_generator_state(g)
             # Another graph destroyed during the capture (the cyclic garbage
@@ -386,6 +434,11 @@ class GraphedStep:
             finally:
                 if gc_was_enabled:
                     gc.enable()
+            # the capture's stamps did not run: each replay adds them
+            stamps = profiling.launched() - stamps0
+            profiling.advance(-stamps, dev)
+            graph.instantiate()
+            seconds = time.perf_counter() - t0
             launches = {name: k.launches - before[name] for name, k in cb.KERNELS.items()
                         if k.launches != before[name]}
             index = dev.index
@@ -396,6 +449,9 @@ class GraphedStep:
             per_replay = [c.calls - n for c, n in zip(self.counters, calls)]
             for c, n in zip(self.counters, calls):
                 c.calls = n
+        kernel_nodes, nodes = graph_nodes(graph)
+        profiling.CAPTURES.append(profiling.CaptureRecord(self.name, seconds, kernel_nodes,
+                                                          nodes, signature[-1]))
         return _Capture(graph=graph, signature=signature, out_spec=out_spec, n_carry=n_carry,
                         carry_slots=carry_slots, arg_slots=arg_slots, out_buffer=out_buffer,
-                        launches=launches, calls=per_replay, worlds=worlds)
+                        launches=launches, calls=per_replay, worlds=worlds, stamps=stamps)

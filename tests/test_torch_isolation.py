@@ -6,8 +6,9 @@ profiling -- the CUDA graphs of the step and the rollout, and the
 distribution: ``parallel``, its mesh, heartbeat and scaling bench), stepping each env family on the CPU through both backends,
 running one PPO update with each policy (MLP; CNN on the image env),
 restoring every committed policy file and taking one eval step of it, a
-single env step with a host-rendered frame, a BC round, a one-trial sweep
-and one ``DistributedPPO`` update on a one-rank gloo group load neither JAX,
+single env step with a host-rendered frame, a BC round, a one-trial sweep,
+an env step and an update traced with spans on, and one ``DistributedPPO``
+update on a one-rank gloo group load neither JAX,
 flax, optax, orbax nor the JAX package; and without a CUDA device no entry
 point picks a device on its own."""
 
@@ -65,6 +66,11 @@ algo = PPO(PPOConfig(n_envs=2, n_steps=2, batch_size=2, n_epochs=1, velocity_ite
                      position_iters=1), device="cpu")
 ts, metrics = algo.train_step(algo.init_state())
 assert int(ts.timesteps) == 4 and bool(torch.isfinite(metrics["loss"]))
+from gym_puzzles_tpu_torch.utils import profiling
+with profiling.tracing() as tr:
+    state, *_ = env.step(state, torch.zeros(4, env.cfg.act_dim))
+    ts, metrics = algo.train_step(ts)
+assert tr.steps == 2 and tr.named("learn.adam")
 from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv
 cnn = PPO(PPOConfig(policy="cnn", n_envs=2, n_steps=2, batch_size=4, n_epochs=1),
           device="cpu", env=DeviceImageVectorEnv(num_envs=2, downsample=16, device="cpu",

@@ -102,6 +102,3 @@ def test_profiling_helpers(tmp_path):
     with profiling.trace(str(tmp_path / "tb")) as prof:
         torch.ones(4).sum()
     assert prof is not None and (tmp_path / "tb" / "trace.json").is_file()
-    meter = profiling.Throughput()
-    meter.add(100)
-    assert meter.rate() > 0
