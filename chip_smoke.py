@@ -5,10 +5,11 @@
 
 Phases (each raises on failure; the script exits non-zero on any):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build both kernels from ``gym_puzzles_tpu_torch/csrc`` (one nvcc each,
-   started together, sm_90a) and print the build time and, for every
-   instantiation (size class) of each, ptxas' registers, stack frame and
-   spills;
+2. build both tick kernels and the learner's fused optimizer step from
+   ``gym_puzzles_tpu_torch/csrc`` (one nvcc each, started together, sm_90a)
+   and print the build time and, for every instantiation (size class) of
+   each tick kernel and each of the optimizer's two kernels, ptxas'
+   registers, stack frame and spills;
 3. hold the fused tick kernel against its plain PyTorch version
    (``world.step``) on the card: the injected 3-body push world (10 ticks at
    8/4), v0 random spawns at 4096 envs (1 tick at 180/60), 1000 envs (the
@@ -138,13 +139,21 @@ Phases (each raises on failure; the script exits non-zero on any):
    main path's env-steps/s (in turns), and kernels run, host launch calls
    and busy share per traced flat and pixel step
    (``profile_step.profile_path``); peak device memory;
-17. (run after 16) the learner as a CUDA graph (``PPO.learn_steps``: the
+17. (run after 16) the learner's fused optimizer step (``adam_fused``: clip,
+   Adam and the target-KL freeze in two launches) against its plain version
+   (``ppo.adam_freeze_plain``) on the card at the v0 MLP's and the pixel
+   CNN's leaves: bit for bit with the clip inactive, within 1e-6 of each
+   leaf's largest magnitude with it active, a frozen step returning its
+   inputs; each one CUDA graph of ``ADAM_CALLS`` chained steps, ms per step
+   beside the bound (7 float32 words per parameter at 3.35 TB/s); then the
+   learner as a CUDA graph (``PPO.learn_steps``: the
    bootstrap value, GAE, the minibatch orders drawn on the card, the epochs
    with the target-KL stop as a device mask, the metrics): two chained
    ``PPO.train_step`` updates (rollout graph, then learner graph) against
    ``PPO.train_step_eager`` from the same state and generator states, every
    element of state and metrics bit for bit, ``kl_stopped`` equal, launches
-   exact and none in the learner's graph: at the v0 recipe (default, then
+   exact, the learner's graph holding two of ``adam_fused`` per minibatch
+   and no tick kernel: at the v0 recipe (default, then
    with ``target_kl`` set so that the stop fires inside the first update, on
    the same graphs), the pixel recipe (cuDNN deterministic) and the v2
    recipe; then PPO env-steps/s past update 1 of each recipe with both
@@ -200,10 +209,12 @@ from gym_puzzles_tpu_torch.render.device import make_device_renderer
 from gym_puzzles_tpu_torch.render.raster import render_batch
 from gym_puzzles_tpu_torch.parallel import DistributedPPO, Heartbeat, scaling_bench
 from gym_puzzles_tpu_torch.parallel import train_state_specs
+from gym_puzzles_tpu_torch.train import adam_fused
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
-from gym_puzzles_tpu_torch.train.ppo import PPO, HParams, PhaseTimer, PPOConfig
+from gym_puzzles_tpu_torch.train.ppo import (PPO, AdamState, HParams, PhaseTimer, PPOConfig,
+                                             adam_freeze_plain, adam_freeze_step)
 from gym_puzzles_tpu_torch.utils import cuda_graph
 
 ENV_ID = "MultiRobotPuzzle-v0"
@@ -395,6 +406,7 @@ PROFILE_STEPS = 20
 # (three modes at the v0 recipe, the learner's two at the others)
 LEARNER_UPDATES = 2
 LEARNER_STOP_KL = 5e-4
+ADAM_CALLS = 20  # chained optimizer steps in each timed CUDA graph
 RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
 RATE_MODES = {"graphs": (True, True), "rollout graph, eager learner": (True, False),
               "eager": (False, False)}
@@ -2196,6 +2208,91 @@ def ppo_rate(cfg, mode: str) -> tuple:
     return (RATE_UPDATES - 1) * cfg.n_steps * cfg.n_envs / sum(walls[1:]), walls, stops
 
 
+def check_adam_fused(algo, card_line, what) -> dict:
+    """Phase 17: the fused optimizer step (``ppo.adam_freeze_step`` on the
+    card: ``train/adam_fused.py``) against its plain version
+    (``ppo.adam_freeze_plain``) at the leaves of ``algo``'s network, params,
+    gradients and moments drawn on the card (the 4-d gradients
+    channels-last, as autograd gives the convolutions'), Adam's count 41:
+    every element bit for bit with the clip inactive (the gradients' norm a
+    tenth of ``max_grad_norm``), within 1e-6 of each leaf's largest
+    magnitude with it active (a hundred times), a frozen step returning
+    every input bit; then ``ADAM_CALLS`` chained steps of each captured in
+    one CUDA graph and replayed: ms per step beside the bound."""
+    dev = algo.device
+    on_card(algo, what)
+    shapes = {k: v.shape for k, v in algo.net.state_dict().items()}
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    hp = cuda_graph.as_device_scalars(HParams.from_config(algo.cfg), dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    randn = lambda s, a: torch.randn(s, generator=gen, device=dev) * a  # noqa: E731
+    params = {k: randn(s, 1.0) for k, s in shapes.items()}
+
+    def inputs(norm):
+        scale = norm / n ** 0.5
+        grads = [randn(s, scale) for s in shapes.values()]
+        grads = [g.to(memory_format=torch.channels_last) if g.dim() == 4 else g
+                 for g in grads]
+        opt = AdamState(mu={k: randn(s, 0.1 * scale) for k, s in shapes.items()},
+                        nu={k: randn(s, 0.1 * scale) ** 2 for k, s in shapes.items()},
+                        count=torch.tensor(41, dtype=torch.int32, device=dev))
+        return grads, opt
+
+    def flags(stop):  # stop, kl, kl_last
+        return tuple(torch.tensor(x, device=dev) for x in (stop, 0.004, 0.002))
+
+    tree = lambda out: (out[0], out[1].mu, out[1].nu, out[1].count, out[2], out[3])  # noqa: E731
+    mgn = float(algo.cfg.max_grad_norm)
+    out = dict(params=n)
+    for case, norm in (("inactive", 0.1 * mgn), ("active", 100.0 * mgn)):
+        grads, opt = inputs(norm)
+        got = tree(adam_freeze_step(params, grads, opt, *flags(False), hp))
+        want = tree(adam_freeze_plain(params, grads, opt, *flags(False), hp))
+        bad = int(mismatches(got, want))
+        rel = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                  for x, y in zip(cuda_graph.flatten(got)[0], cuda_graph.flatten(want)[0])
+                  if x.dtype == torch.float32)
+        out[case] = dict(differ=bad, rel=rel)
+    frozen = tree(adam_freeze_step(params, grads, opt, *flags(True), hp))
+    out["frozen_differ"] = int(mismatches(frozen, tree((params, opt, *flags(True)[::2]))))
+
+    def graphed(step):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step(params, grads, opt, *flags(False), hp)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        stop, kl, kl_last = flags(False)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            p, o, s, k = params, opt, stop, kl_last
+            for _ in range(ADAM_CALLS):
+                p, o, s, k = step(p, grads, o, s, kl, k, hp)
+        del p, o, s, k
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        return cuda_ms(graph.replay, 5) / ADAM_CALLS
+
+    before = cb.launch_count("adam_fused")
+    out["ms"] = graphed(adam_freeze_step)
+    out["capture_launches"] = cb.launch_count("adam_fused") - before
+    out["plain_ms"] = graphed(adam_freeze_plain)
+    out["bound_ms"] = 1e3 * 7 * 4 * n / HBM_BYTES_PER_S
+    print(f"  adam_fused at the {what}'s {len(shapes)} leaves, {n:,} parameters: clip inactive "
+          f"{out['inactive']['differ']} elements differ from the plain version, clip active "
+          f"largest difference {out['active']['rel']:.2e} of its leaf's largest magnitude "
+          f"({out['active']['differ']} elements differ), frozen {out['frozen_differ']} differ "
+          f"from the inputs; {out['ms'] * 1e3:.1f} us per step in a graph of {ADAM_CALLS} "
+          f"(bound {out['bound_ms'] * 1e3:.2f} us: 7 float32 words per parameter at 3.35 TB/s), "
+          f"plain version {out['plain_ms'] * 1e3:.1f} us  [{card_line}]", flush=True)
+    if out["inactive"]["differ"] or out["frozen_differ"] or not out["active"]["rel"] <= 1e-6:
+        raise AssertionError(f"adam_fused at the {what}: {out}")
+    if out["capture_launches"] != 2 * (ADAM_CALLS + 1):
+        raise AssertionError(f"adam_fused at the {what}: {out['capture_launches']} launches "
+                             f"counted, expected {2 * (ADAM_CALLS + 1)}")
+    return out
+
+
 def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=False) -> dict:
     """Phase 17: ``LEARNER_UPDATES`` chained updates of the learner ``algo``
     from its ``init_state()`` (``hparams`` set through ``set_hparams``
@@ -2206,7 +2303,8 @@ def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=Fal
     normalizer, env state, generators) and of the metrics equal bit for bit,
     ``kl_stopped`` equal; launches counted just around the replays (n_steps x
     frameskip of the learner's kernel per update), the learner's graph
-    holding none.  With ``stop_in_first`` the stop must fire inside update 1
+    holding no tick kernel and two launches of ``adam_fused`` per
+    minibatch.  With ``stop_in_first`` the stop must fire inside update 1
     (Adam's count then says at which minibatch)."""
     cfg = algo.cfg
     on_card(algo, what)
@@ -2250,9 +2348,9 @@ def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=Fal
         raise AssertionError(f"{what}: kl_stopped differs: {stops}")
     if stop_in_first and not (stops[0][0] and stops[0][2] < per_update):
         raise AssertionError(f"{what}: the stop did not fire inside update 1: {stops}")
-    if launches != want or held.get("learner") != {}:
+    if launches != want or held.get("learner") != {"adam_fused": 2 * per_update}:
         raise AssertionError(f"{what}: launches {launches} (graphs hold {held}), expected "
-                             f"{want} and none in the learner's graph")
+                             f"{want} and {2 * per_update} of adam_fused in the learner's graph")
     return dict(launches=launches, stops=stops, wall=wall, held=held["learner"])
 
 
@@ -2274,6 +2372,7 @@ def run_learner_graphs(card_line) -> dict:
                                              **TRAIN_OVERRIDES)
     pixel_cfg, v2_cfg = PPOConfig(**CNN_CONFIG), v2_config()
     flat = PPO(flat_cfg)
+    adam = {"v0": check_adam_fused(flat, card_line, "v0 recipe")}
     checks = {"v0": learner_against_eager(flat, card_line, "PPO at the v0 recipe"),
               "v0 stop": learner_against_eager(
                   flat, card_line, f"PPO at the v0 recipe, target_kl {LEARNER_STOP_KL} (the "
@@ -2282,8 +2381,11 @@ def run_learner_graphs(card_line) -> dict:
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
-        checks["pixel"] = learner_against_eager(PPO(pixel_cfg), card_line,
+        pixel = PPO(pixel_cfg)
+        adam["pixel"] = check_adam_fused(pixel, card_line, "pixel recipe")
+        checks["pixel"] = learner_against_eager(pixel, card_line,
                                                 "PPO at the pixel recipe (cudnn deterministic)")
+        del pixel
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     checks["v2"] = learner_against_eager(PPO(v2_cfg), card_line, "PPO at the v2 recipe")
@@ -2328,7 +2430,7 @@ def run_learner_graphs(card_line) -> dict:
     for c in checks.values():
         for name, n in c["held"].items():
             held[name] = held.get(name, 0) + n
-    return dict(checks=checks, rates=rates, profiles=profiles, held=held,
+    return dict(checks=checks, rates=rates, profiles=profiles, held=held, adam=adam,
                 launches=sum(c["launches"]["step_fused"] for c in checks.values()))
 
 
@@ -2512,11 +2614,14 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = [pool.submit(m.KERNEL.build) for m in (step_cuda, solver_cuda)]
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(m.KERNEL.build) for m in (step_cuda, solver_cuda, adam_fused)]
         builds = [f.result() for f in builds]
     print(f"  built {', '.join(path.name for path, _ in builds)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for line in builds[2][1].splitlines():
+        if "Function properties" in line or "registers" in line or "stack frame" in line:
+            print(f"  ptxas: adam_fused: {line.strip()}", flush=True)
     for m, (_path, log) in zip((step_cuda, solver_cuda), builds):
         report = cb.ptxas_report(log)
         if len(report) != len(cb.SIZE_CLASSES):
@@ -2701,6 +2806,14 @@ def main() -> int:
              v3_heavy5_plain_ms=heavy5_solve_plain_ms,
              ms=v0["solve_ms"], plain_ms=solve_plain_ms,
              bound_ms=v0["solve_bound"]["ms"], bound_by=v0["solve_bound"]["by"]),
+        dict(common, name="adam_fused",
+             source="gym_puzzles_tpu_torch/csrc/adam_fused.cu", replaces=None,
+             learner_graph_launches=learner["held"].get("adam_fused", 0),
+             **{f"{net}_{key}": a[key] for net, a in learner["adam"].items()
+                for key in ("params", "ms", "plain_ms", "bound_ms")},
+             **{f"{net}_active_rel_err": a["active"]["rel"]
+                for net, a in learner["adam"].items()},
+             bound_by="bytes"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,9 @@ binding, the world table and the launch counts.
   and pair counts (``SIZE_CLASSES``, the ``GPT_SMALL_*`` / ``GPT_LARGE_*`` of
   ``csrc/tick.cuh``); :func:`size_class` picks the smallest a table fits,
   and the launch passes its index.
-* Each :class:`CudaKernel` counts its launches; :func:`launch_count` reads a
-  count by the kernel's name.  A launch captured into a CUDA graph counts
+* Each :class:`CudaKernel` (and :class:`PlainKernel`, a kernel with no
+  world table) counts its launches; :func:`launch_count` reads a count by the
+  kernel's name.  A launch captured into a CUDA graph counts
   once per replay: the graph records how many launches of each kernel it
   holds, takes its capture out of the counts, and adds them at each replay.
 """
@@ -207,12 +208,17 @@ def build_library(name: str, cmd: list, sources: list, key: str,
     return lib, log
 
 
+def build_plain(name: str, source: str, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+    """A kernel source with a plain C interface and no world table, built
+    with the kernels' flags (:func:`build_library`)."""
+    return build_library(name, [_nvcc(), *NVCC_FLAGS], [CSRC / source], " ".join(NVCC_FLAGS),
+                         build_dir)
+
+
 def load_plain(name: str, source: str, functions: dict, build_dir: Path = BUILD_DIR):
-    """A kernel source with a plain C interface and no world table (the span
-    stamp of ``utils/profiling.py``), built with the kernels' flags and
-    loaded; ``functions`` maps each C function's name to (argtypes, restype)."""
-    path, _log = build_library(name, [_nvcc(), *NVCC_FLAGS], [CSRC / source],
-                               " ".join(NVCC_FLAGS), build_dir)
+    """:func:`build_plain`, loaded (the span stamp of ``utils/profiling.py``);
+    ``functions`` maps each C function's name to (argtypes, restype)."""
+    path, _log = build_plain(name, source, build_dir)
     lib = ctypes.CDLL(str(path))
     for fn, (argtypes, restype) in functions.items():
         getattr(lib, fn).argtypes = argtypes
@@ -220,7 +226,31 @@ def load_plain(name: str, source: str, functions: dict, build_dir: Path = BUILD_
     return lib
 
 
-KERNELS: dict[str, "CudaKernel"] = {}
+KERNELS: dict[str, "CudaKernel | PlainKernel"] = {}
+
+
+class PlainKernel:
+    """A kernel source with a plain C interface and no world table
+    (:func:`load_plain`; the learner's ``csrc/adam_fused.cu``) whose launches
+    are counted as a :class:`CudaKernel`'s: :func:`launch_count` reads them,
+    and a CUDA graph adds the launches it captured at each replay.  Its
+    wrapper calls the C function and adds to :attr:`launches`."""
+
+    def __init__(self, name: str, source: str, functions: dict):
+        self.name, self.source, self.functions = name, source, functions
+        self.lib = None
+        self.launches = 0
+        self._lock = threading.Lock()
+        KERNELS[name] = self
+
+    def build(self, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+        return build_plain(self.name, self.source, build_dir)
+
+    def load(self):
+        with self._lock:
+            if self.lib is None:
+                self.lib = load_plain(self.name, self.source, self.functions)
+        return self.lib
 
 
 class CudaKernel:

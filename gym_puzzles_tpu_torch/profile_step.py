@@ -38,9 +38,11 @@ with ``V0_OVERRIDES``: 4096 envs, n_steps 64, batch 8192, 4 epochs) or, with
 (both CUDA graphs captured): the learner alone (bootstrap value, GAE, the
 minibatch epochs and metrics on one rollout's Transition) as its graph's
 replay and as its eager body, then whole updates as both graphs and as the
-rollout graph with the eager learner, the same numbers per update; then
-whole updates split by the spans (the learner's ``learn.grad`` against
-``learn.adam``), traced, and the cost of tracing.
+rollout graph with the eager learner, the same numbers per update; the
+learner graph's kernel nodes beside the launches of the hand-written kernels
+it holds per replay (``adam_fused``: two per minibatch); then whole updates
+split by the spans (the learner's ``learn.grad`` against ``learn.adam``),
+traced, and the cost of tracing.
 """
 
 from __future__ import annotations
@@ -251,6 +253,9 @@ def profile_learner(cfg: PPOConfig, suffix: str = "", spans: bool = True) -> dic
     for graphed in (True, False):
         out["learner_graph" if graphed else "learner_eager"] = trace(
             lambda _k, g=graphed: algo._learn(start, ts, traj, None, None, g), 1)
+    capture = [c for c in profiling.CAPTURES if c.name == "ppo.learner" and not c.traced][-1]
+    out["learner_kernel_nodes"] = capture.kernel_nodes
+    out["learner_kernel_launches"] = algo.graph_launches["learner"]
     state = {"ts": ts}
 
     def update(learner_graph):
@@ -268,6 +273,8 @@ def profile_learner(cfg: PPOConfig, suffix: str = "", spans: bool = True) -> dic
                       ("update_graphs", "one update, rollout and learner graphs"),
                       ("update_learner_eager", "one update, rollout graph, eager learner")):
         report(f"{name}: {what}", out[key], suffix, unit="update")
+    print(f"  learner graph: {out['learner_kernel_nodes']} kernel nodes; launches per replay of "
+          f"the hand-written kernels {out['learner_kernel_launches']}{suffix}", flush=True)
     if spans:
         out["split"] = split(update(True), SPLIT_UPDATES, suffix, unit="update")
     return out

@@ -15,10 +15,13 @@ the JAX package's one jit-compiled train step (``ppo.py:219,249-470``):
 2. the learner (the body: :meth:`PPO.learn_steps`, replayed as a second CUDA
    graph on the card): the bootstrap value, GAE(gamma, lambda) advantages
    (:func:`compute_gae`), the minibatch orders, then ``n_epochs`` x minibatch
-   SGD with the clipped surrogate, entropy bonus, value loss, global-norm
-   gradient clipping, an Adam step written as ``optax.scale_by_adam``
-   computes it, and the JAX package's target-KL stop as a device mask; then
-   the metrics.  No value is read back to the host on the way.
+   SGD with the clipped surrogate, entropy bonus, value loss, then
+   (:func:`adam_freeze_step`) global-norm gradient clipping, an Adam step
+   written as ``optax.scale_by_adam`` computes it, and the JAX package's
+   target-KL stop as a device mask: on the card one hand-written CUDA kernel
+   pair per minibatch (``train/adam_fused.py``), on the CPU its plain
+   version (:func:`adam_freeze_plain`); then the metrics.  No value is read
+   back to the host on the way.
 
 Randomness comes from two ``torch.Generator`` s on the device: the
 learner's (action noise and minibatch order) and the env's own (spawns).
@@ -45,8 +48,9 @@ host span ``ppo.update``, holding ``ppo.noise`` (the action noise's draw),
 the device ``rollout.policy`` (normalize, forward, sample, log-prob) and the
 env's spans at each rollout step, then ``learn.gae`` (bootstrap and GAE),
 per minibatch ``learn.grad`` (gather, forward, loss, backward) and
-``learn.adam`` (clip, Adam, the stop's masks, the KL test), and
-``learn.metrics``.  :class:`PhaseTimer` times the ``ppo.rollout`` and
+``learn.adam`` (:func:`adam_freeze_step`: on the card the two launches of the
+fused kernel pair, which clip, take the Adam step, freeze and test the KL),
+and ``learn.metrics``.  :class:`PhaseTimer` times the ``ppo.rollout`` and
 ``ppo.learner`` spans' blocks, tracing on or off.
 
 Hyperparameter names and defaults mirror train/configs/ppo-mrp-*.json, so
@@ -70,6 +74,7 @@ from gym_puzzles_tpu_torch.api.vector import resolve_device
 from gym_puzzles_tpu_torch.engine.types import DeviceScalars, Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.envs.config import RewardParams, _f32
+from gym_puzzles_tpu_torch.train import adam_fused
 from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
                                                   gaussian_entropy, gaussian_log_prob)
@@ -77,6 +82,8 @@ from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, as_device_scalar
 from gym_puzzles_tpu_torch.utils.profiling import device_span, span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
+# the clip's guard on the gradients' norm; the KL stop's margin over target_kl
+CLIP_EPS, KL_FACTOR = 1e-6, 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,8 +318,52 @@ def adam_step(params: dict, grads: list, opt: AdamState, hp: HParams):
     then :func:`adam_update` at ``hp.learning_rate`` (``hp`` as 0-d
     tensors)."""
     g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    clip = torch.clamp(hp.max_grad_norm / (g_norm + 1e-6), max=1.0)
+    clip = torch.clamp(hp.max_grad_norm / (g_norm + CLIP_EPS), max=1.0)
     return adam_update(params, torch._foreach_mul(grads, clip), opt, hp.learning_rate)
+
+
+@torch.no_grad()
+def adam_freeze_plain(params: dict, grads: list, opt: AdamState, stop, kl, kl_last,
+                      hp: HParams) -> tuple:
+    """:func:`adam_step`, then the target-KL freeze of :meth:`PPO.learn_steps`
+    -> (params, opt_state, stop, kl_last).  With ``stop`` set, params, Adam's
+    moments and count stay as they are (``torch.where`` on the device bool);
+    ``stop`` becomes true after an applied minibatch whose ``kl`` exceeds
+    ``KL_FACTOR * hp.target_kl`` (never with ``target_kl <= 0``), and
+    ``kl_last`` is the last applied minibatch's KL.  The plain version of the
+    kernel pair (``train/adam_fused.py``): what the CPU runs."""
+    new_params, new_opt = adam_step(params, grads, opt, hp)
+    use = ~stop
+    keep = lambda new, old: {k: torch.where(use, new[k], old[k]) for k in old}  # noqa: E731
+    opt = AdamState(mu=keep(new_opt.mu, opt.mu), nu=keep(new_opt.nu, opt.nu),
+                    count=torch.where(use, new_opt.count, opt.count))
+    stop = stop | (use & (hp.target_kl > 0.0) & (kl > KL_FACTOR * hp.target_kl))
+    return keep(new_params, params), opt, stop, torch.where(use, kl, kl_last)
+
+
+# adam_freeze_plain's Python constants as PyTorch rounds them against float32
+# tensors, in the order of csrc/adam_fused.cu's Consts
+_KERNEL_CONSTS = tuple(float(np.float32(x)) for x in (1 - ADAM_B1, ADAM_B1, 1 - ADAM_B2, ADAM_B2,
+                                                      ADAM_EPS, CLIP_EPS, KL_FACTOR))
+
+
+@torch.no_grad()
+def adam_freeze_step(params: dict, grads: list, opt: AdamState, stop, kl, kl_last,
+                     hp: HParams) -> tuple:
+    """One minibatch's optimizer step, :func:`adam_freeze_plain`'s function
+    (``hp`` as 0-d tensors): for CUDA params the kernel pair of
+    ``train/adam_fused.py``, which raises on what it does not take; for CPU
+    params :func:`adam_freeze_plain`.  The kernel reads each leaf in
+    row-major order, so a leaf in another layout is copied to row-major first
+    (autograd gives the convolutions' weight gradients channels-last)."""
+    if next(iter(params.values())).device.type != "cuda":
+        return adam_freeze_plain(params, grads, opt, stop, kl, kl_last, hp)
+    rows = lambda d: {k: v.contiguous() for k, v in d.items()}  # noqa: E731
+    scalars = (hp.learning_rate, hp.max_grad_norm, hp.target_kl, opt.count, stop, kl, kl_last)
+    p, mu, nu, count, stop, kl_last = adam_fused.launch(
+        rows(params), [g.contiguous() for g in grads], rows(opt.mu), rows(opt.nu), scalars,
+        _KERNEL_CONSTS, _ADAM_DECAYS)
+    return p, AdamState(mu=mu, nu=nu, count=count), stop, kl_last
 
 
 def draw_orders(generator: torch.Generator, n_epochs: int, total: int, device) -> torch.Tensor:
@@ -592,8 +643,8 @@ class PPO:
         Every minibatch of every epoch runs.  Target-KL stop (the JAX
         package's, ``ppo.py:415-424``): the minibatch whose approx KL exceeds
         ``1.5 * target_kl`` still applies its update, and from the next one
-        on params, Adam's moments and count stay as they are (``torch.where``
-        on a device bool); ``target_kl <= 0`` disables it.  ``approx_kl`` is
+        on params, Adam's moments and count stay as they are, by a device bool
+        (:func:`adam_freeze_step`); ``target_kl <= 0`` disables it.  ``approx_kl`` is
         the KL of the last applied minibatch, ``kl_stopped`` the device bool;
         ``loss``, ``policy_loss``, ``value_loss`` and ``entropy`` average all
         ``n_epochs * n_minibatch`` minibatches, the frozen ones included.
@@ -648,7 +699,6 @@ class PPO:
         [len(idxs), 4]: total, policy, value, entropy of each minibatch)."""
         obs, action, old_lp, adv, ret = batch
         dev = self.device
-        kl_limit, kl_on = 1.5 * hp.target_kl, hp.target_kl > 0.0
         stop = torch.zeros((), dtype=torch.bool, device=dev)
         kl_last = torch.zeros((), device=dev)
         params = {k: v.detach().requires_grad_() for k, v in params.items()}
@@ -660,16 +710,10 @@ class PPO:
                 grads = list(torch.autograd.grad(loss, list(params.values())))
             if mesh is not None:
                 *grads, kl = mesh.mean(grads + [kl])
-            with torch.no_grad(), device_span("learn.adam", dev):
-                new_params, new_opt = adam_step(params, grads, opt, hp)
-                use = ~stop
-                keep = lambda new, old: {k: torch.where(use, new[k], old[k])  # noqa: E731
-                                         for k in old}
-                params = {k: v.requires_grad_() for k, v in keep(new_params, params).items()}
-                opt = AdamState(mu=keep(new_opt.mu, opt.mu), nu=keep(new_opt.nu, opt.nu),
-                                count=torch.where(use, new_opt.count, opt.count))
-                stop = stop | (use & kl_on & (kl > kl_limit))
-                kl_last = torch.where(use, kl, kl_last)
+            with device_span("learn.adam", dev):
+                params, opt, stop, kl_last = adam_freeze_step(params, grads, opt, stop, kl,
+                                                              kl_last, hp)
+                params = {k: v.requires_grad_() for k, v in params.items()}
             losses.append(torch.stack([loss.detach(), pg, vl, ent]))
         return ({k: v.detach() for k, v in params.items()}, opt, stop, kl_last,
                 torch.stack(losses))

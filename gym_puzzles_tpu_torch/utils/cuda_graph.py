@@ -442,8 +442,8 @@ class GraphedStep:
             launches = {name: k.launches - before[name] for name, k in cb.KERNELS.items()
                         if k.launches != before[name]}
             index = dev.index
-            worlds = [(cb.KERNELS[name], cb.KERNELS[name].uploaded[index][0])
-                      for name in launches]
+            worlds = [(k, k.uploaded[index][0]) for k in map(cb.KERNELS.get, launches)
+                      if isinstance(k, cb.CudaKernel)]
             for name, k in cb.KERNELS.items():
                 k.launches = counts.get(name, 0)
             per_replay = [c.calls - n for c, n in zip(self.counters, calls)]
