@@ -997,8 +997,7 @@ def time_kernels(dev, env_id, card_line, E=NUM_ENVS) -> dict:
     fused = lambda: step_cuda.launch(table, bf, pf, pi, DT, VI, PI)
     fused()
     fused_ms = cuda_ms(fused, 10)
-    vc = world.before_solve(table, bodies, contacts, force, torque, wake, DT)[0][0]
-    live = vc.solve & (vc.count > 0)  # the rows the kernel's sweeps visit
+    live = cb.live_pairs(table, bodies, contacts, force, torque, wake, DT)
     fused_bound = kernel_bound(table, bf, live, VI, PI)
     fused_live = live_line(live, step_cuda.KERNEL)
 
@@ -1476,8 +1475,7 @@ def time_pixel_kernel(dev, card_line) -> dict:
                f"trig", dict(pos=maxdiff(bi.pos, be.pos), angle=maxdiff(bi.angle, be.angle)),
                {k: SPAWN_TRIG_LIMITS[k] for k in ("pos", "angle")})
     bf, pf, pi = step_cuda.pack(bodies, contacts, force, torque, wake)
-    live = world.before_solve(table, bodies, contacts, force, torque, wake, DT)[0][0]
-    live = live.solve & (live.count > 0)
+    live = cb.live_pairs(table, bodies, contacts, force, torque, wake, DT)
     per_warp = step_cuda.KERNEL.envs_per_warp()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
@@ -1589,8 +1587,7 @@ def check_small_batches(dev, env_id, card_line) -> dict:
     fn = lambda: step_cuda.launch(table, bf, pf, pi, DT, VI, PI)  # noqa: E731
     fn()
     ms = cuda_ms(fn, 20)
-    live = world.before_solve(table, *one, DT)[0][0]
-    live = live.solve & (live.count > 0)
+    live = cb.live_pairs(table, *one, DT)
     b = kernel_bound(table, bf, live, VI, PI)
     print(f"  step_fused at E=1, {env_id} spawn {VI}/{PI}: {ms:.3f} ms per launch; "
           f"{int(live.sum())} live pairs; bound {b['ms']:.7f} ms ({b['by']}): {b['bytes']} bytes "

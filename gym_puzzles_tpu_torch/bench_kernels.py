@@ -71,8 +71,7 @@ def inputs(dev, env_id, E=NUM_ENVS):
     [P, E]) of E spawns: the fused kernel's tick, and the contact solve of
     the tick after it."""
     table, tick = spawns(dev, env_id, E)
-    vc = world.before_solve(table, *tick, DT)[0][0]
-    fused_live = vc.solve & (vc.count > 0)
+    fused_live = cb.live_pairs(table, *tick, DT)
     bodies, contacts, _ = step_cuda.step_fused(table, *tick, DT, VI, PI)
     solve_args = world.before_solve(table, bodies, contacts, *tick[2:], DT)[0]
     solve_live = solve_args[0].solve & (solve_args[0].count > 0)

@@ -162,6 +162,16 @@ def size_class(table: ShapeTable) -> int:
                      f"take at most {MAX_B} and {MAX_P}")
 
 
+def live_pairs(table: ShapeTable, bodies, contacts, force, torque, wake, dt) -> torch.Tensor:
+    """[P, E] bool: the pairs whose rows kernel A's sweeps visit in a tick
+    from these inputs, those solved with an effective point (the
+    constraints of ``world.before_solve``: ``solve & count > 0``)."""
+    from gym_puzzles_tpu_torch.engine import world  # world imports this module
+
+    vc = world.before_solve(table, bodies, contacts, force, torque, wake, dt)[0][0]
+    return vc.solve & (vc.count > 0)
+
+
 def live_pair_stats(live: torch.Tensor, envs_per_warp: int) -> dict:
     """What bounds a sweep's length, from ``live`` [P, E] (the pairs a
     kernel's sweeps visit): the mean live pairs per env, and the mean over

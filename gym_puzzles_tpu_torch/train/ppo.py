@@ -51,7 +51,9 @@ per minibatch ``learn.grad`` (gather, forward, loss, backward) and
 ``learn.adam`` (:func:`adam_freeze_step`: on the card the two launches of the
 fused kernel pair, which clip, take the Adam step, freeze and test the KL),
 and ``learn.metrics``.  :class:`PhaseTimer` times the ``ppo.rollout`` and
-``ppo.learner`` spans' blocks, tracing on or off.
+``ppo.learner`` spans' blocks, tracing on or off.  With tracing on, after
+``ppo.update`` closes, the counter ``profiling.LIVE_PAIRS`` takes kernel A's
+load on the state the rollout ended in.
 
 Hyperparameter names and defaults mirror train/configs/ppo-mrp-*.json, so
 the reference's configs load directly.
@@ -79,7 +81,7 @@ from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
                                                   gaussian_entropy, gaussian_log_prob)
 from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, as_device_scalars, weak_call
-from gym_puzzles_tpu_torch.utils.profiling import device_span, span
+from gym_puzzles_tpu_torch.utils.profiling import count_live_pairs, device_span, span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-5
 # the clip's guard on the gradients' norm; the KL stop's margin over target_kl
@@ -806,7 +808,12 @@ class PPO:
             start = ts
             ts, traj = self._rollout(ts, noise, timer, mesh, rollout_graph)
             with span("ppo.learner", timer):
-                return self._learn(start, ts, traj, perms, mesh, learner_graph)
+                ts, metrics = self._learn(start, ts, traj, perms, mesh, learner_graph)
+        # tracing on: kernel A's load on the state the rollout ended in, taken
+        # after the update's spans (a no-op with tracing off)
+        count_live_pairs(self.env.logic.layout.table, getattr(ts.vstate, "vec", ts.vstate),
+                         self.env.cfg.dt)
+        return ts, metrics
 
     def _learn(self, start, ts, traj, perms, mesh, graphed: bool):
         """The learner on ``ts`` after a rollout from ``start`` into ``traj``:

@@ -31,9 +31,12 @@ first stamp was launched (for a replay, ``graph.launch``); its step is its
 parent's.  A host span opened with ``step=True`` (``env.step``,
 ``ppo.update``) starts the next step, unless it sits inside another.
 
-**Counters**, kept with tracing on or off: :data:`CAPTURES`, one record per
+**Counters**: :data:`CAPTURES`, kept with tracing on or off, one record per
 CUDA graph capture -- its name, the seconds of its warm-up and capture, and
-the kernel nodes (and all nodes) of the captured graph.
+the kernel nodes (and all nodes) of the captured graph; :data:`LIVE_PAIRS`,
+kept with tracing on only, one record of kernel A's load per world state
+that :func:`count_live_pairs` is given (the learner gives the state each
+rollout ends in, after its update's spans have closed).
 
 :func:`trace` is the operator's exporter: the profiler and tracing together
 over a block, written as one Chrome trace (``<dir>/trace.json``) whose rows
@@ -97,6 +100,27 @@ class CaptureRecord:
 
 
 CAPTURES: list[CaptureRecord] = []  # every capture of this process, in order
+
+
+@dataclasses.dataclass
+class LivePairRecord:
+    """Kernel A's load on one world state, as the sweeps of a tick from it
+    find it: the live pairs per env (``_cuda_build.live_pairs``) -- ``mean``
+    over the envs, ``warp_max`` the mean over warps of the most any env of
+    the warp has (a warp runs as long as its most loaded env), ``max`` the
+    most of any env -- at ``envs_per_warp`` (kernel A's build on a CUDA
+    device; 1 on the CPU, which ticks with the plain version), and the
+    ``size_class`` of kernel A that the world's table takes."""
+
+    num_envs: int
+    mean: float
+    warp_max: float
+    max: float
+    envs_per_warp: int
+    size_class: int
+
+
+LIVE_PAIRS: list[LivePairRecord] = []  # every record of this process, in order
 
 
 class Trace:
@@ -308,6 +332,31 @@ def _stamp(code: int, device: torch.device):
     else:
         r.cpu_ring.append((code, time.perf_counter_ns()))
     r.launched += 1
+
+
+def count_live_pairs(table, state, dt: float) -> LivePairRecord | None:
+    """With tracing on, append to :data:`LIVE_PAIRS` the load kernel A
+    meets at the next tick from ``state`` (an ``EnvState``): every dynamic
+    body woken, as a step's control wakes the block and each commanded
+    agent, and no force.  Its ops run eagerly where they are called: call it
+    outside any CUDA graph capture and outside the spans that time a layer.
+    With tracing off it does nothing and returns None."""
+    if not _REC.on:
+        return None
+    from gym_puzzles_tpu_torch.engine import _cuda_build as cb
+    from gym_puzzles_tpu_torch.engine import step_cuda
+
+    bodies = state.bodies
+    dyn = torch.as_tensor(~table.is_static, device=bodies.awake.device)[:, None]
+    live = cb.live_pairs(table, bodies, state.contacts, torch.zeros_like(bodies.vel),
+                         torch.zeros_like(bodies.omega), dyn.expand_as(bodies.awake), dt)
+    per_warp = step_cuda.KERNEL.envs_per_warp() if live.is_cuda else 1
+    st = cb.live_pair_stats(live, per_warp)
+    rec = LivePairRecord(num_envs=int(live.shape[-1]), mean=st["mean"],
+                         warp_max=st["warp_max"], max=st["max"], envs_per_warp=per_warp,
+                         size_class=cb.size_class(table))
+    LIVE_PAIRS.append(rec)
+    return rec
 
 
 def launched() -> int:
