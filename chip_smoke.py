@@ -139,7 +139,11 @@ Phases (each raises on failure; the script exits non-zero on any):
    main path's env-steps/s (in turns), and kernels run, host launch calls
    and busy share per traced flat and pixel step
    (``profile_step.profile_path``); peak device memory;
-17. (run after 16) the learner's fused optimizer step (``adam_fused``: clip,
+17. (run after 16) the MLP learner's minibatch gradient chain (``mlp_grad``)
+   against ``PPO.loss`` + autograd at the v0 and Heavy-v0 X4 recipes' shapes,
+   each leaf within ``MLP_GRAD_TOL`` of its largest magnitude, then us per
+   minibatch in a CUDA graph beside its float32 bound, the three trunk GEMMs
+   alone and the plain version; the learner's fused optimizer step (``adam_fused``: clip,
    Adam and the target-KL freeze in two launches) against its plain version
    (``ppo.adam_freeze_plain``) on the card at the v0 MLP's and the pixel
    CNN's leaves: bit for bit with the clip inactive, within 1e-6 of each
@@ -152,8 +156,8 @@ Phases (each raises on failure; the script exits non-zero on any):
    ``PPO.train_step`` updates (rollout graph, then learner graph) against
    ``PPO.train_step_eager`` from the same state and generator states, every
    element of state and metrics bit for bit, ``kl_stopped`` equal, launches
-   exact, the learner's graph holding two of ``adam_fused`` per minibatch
-   and no tick kernel: at the v0 recipe (default, then
+   exact, the learner's graph holding two of ``adam_fused`` and, at the MLP
+   recipes, four of ``mlp_grad`` per minibatch, and no tick kernel: at the v0 recipe (default, then
    with ``target_kl`` set so that the stop fires inside the first update, on
    the same graphs), the pixel recipe (cuDNN deterministic) and the v2
    recipe; then PPO env-steps/s past update 1 of each recipe with both
@@ -189,11 +193,13 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.func import functional_call
 
 from gym_puzzles_tpu_torch import make, profile_step
 from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
@@ -209,10 +215,11 @@ from gym_puzzles_tpu_torch.render.device import make_device_renderer
 from gym_puzzles_tpu_torch.render.raster import render_batch
 from gym_puzzles_tpu_torch.parallel import DistributedPPO, Heartbeat, scaling_bench
 from gym_puzzles_tpu_torch.parallel import train_state_specs
-from gym_puzzles_tpu_torch.train import adam_fused
+from gym_puzzles_tpu_torch.train import adam_fused, mlp_grad
 from gym_puzzles_tpu_torch.train import checkpoint as ckpt
 from gym_puzzles_tpu_torch.train import cli, evaluate, imitate, scripted, sweep
 from gym_puzzles_tpu_torch.train import normalize as nrm
+from gym_puzzles_tpu_torch.train.networks import ActorCritic, gaussian_log_prob
 from gym_puzzles_tpu_torch.train.ppo import (PPO, AdamState, HParams, PhaseTimer, PPOConfig,
                                              adam_freeze_plain, adam_freeze_step)
 from gym_puzzles_tpu_torch.utils import cuda_graph
@@ -407,6 +414,11 @@ PROFILE_STEPS = 20
 LEARNER_UPDATES = 2
 LEARNER_STOP_KL = 5e-4
 ADAM_CALLS = 20  # chained optimizer steps in each timed CUDA graph
+# the MLP learner's minibatch gradient (mlp_grad) at the recipes' shapes:
+# (obs_dim, act_dim, minibatch rows, flat batch rows, clip_range)
+MLP_GRAD_SHAPES = {"v0 recipe": (28, 6, 8192, 4096 * 64, 0.2),
+                   "Heavy-v0 X4 recipe": (40, 15, 16384, 16384 * 64, 0.1)}
+MLP_GRAD_TOL = 5e-5  # of each leaf's largest magnitude, against PPO.loss + autograd
 RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
 RATE_MODES = {"graphs": (True, True), "rollout graph, eager learner": (True, False),
               "eager": (False, False)}
@@ -2290,6 +2302,99 @@ def check_adam_fused(algo, card_line, what) -> dict:
     return out
 
 
+def mlp_grad_case(dev, D, A, M, N, clip) -> tuple:
+    """(net, params, batch, idx, hp) of a 256 x 256 ActorCritic at obs_dim
+    ``D`` and act_dim ``A`` on the card: a log-std and a mean head large
+    enough for real gradients, a flat batch of ``N`` rows and a minibatch of
+    ``M`` of them, the old log-probs set so that the ratios fall across the
+    clip range ``clip``, none within 1e-3 of a bound (where the kernels'
+    round-off and ATen's could put a row on either side)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    net = ActorCritic(D, A, (256, 256), torch.Generator().manual_seed(21)).to(dev)
+    params = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    params["log_std"] += 0.3 * randn(A)
+    params["mean.weight"] *= 30.0
+    obs, act, adv = randn(N, D), randn(N, A), 2.0 * randn(N) + 0.3
+    idx = torch.randperm(N, generator=gen, device=dev)[:M]
+    with torch.no_grad():
+        mean, log_std, value = functional_call(net, params, (obs,))
+        ratio = 0.5 + 1.1 * torch.rand(N, generator=gen, device=dev)
+        for bound in (1.0 - clip, 1.0 + clip):
+            ratio = torch.where((ratio - bound).abs() < 1e-3, ratio + 2e-3, ratio)
+        olp = gaussian_log_prob(mean, log_std, act) - torch.log(ratio)
+    batch = (obs, act, olp.contiguous(), adv, (value + randn(N)).contiguous())
+    hp = cuda_graph.as_device_scalars(HParams.from_config(PPOConfig(clip_range=clip)), dev)
+    return net, params, batch, idx, hp
+
+
+def check_mlp_grad(card_line) -> dict:
+    """Phase 17: the MLP learner's minibatch gradient chain
+    (``train/mlp_grad.py``) against its plain version, ``PPO.loss`` +
+    ``torch.autograd.grad``, on the card at each of ``MLP_GRAD_SHAPES``
+    (256 x 256 trunk; weights, batch and minibatch rows drawn on the card, the
+    old log-probs set so that the ratios fall across the clip range): every
+    leaf within ``MLP_GRAD_TOL`` of its largest magnitude, the losses and KL
+    within 1e-5; then ``ADAM_CALLS`` calls of each in one CUDA graph: us per
+    minibatch beside the bound (the float32 FMA-operations of the products
+    at 67 TFLOP/s) and the three trunk GEMMs alone."""
+    dev = torch.device("cuda")
+    out = {}
+    for what, shape in MLP_GRAD_SHAPES.items():
+        D, A, M, N, _clip = shape
+        net, params, batch, idx, hp = mlp_grad_case(dev, *shape)
+        algo = SimpleNamespace(apply=lambda p, o: functional_call(net, p, (o,)))
+
+        def plain():
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            loss, (pg, vl, ent, kl) = PPO.loss(algo, p, *(x[idx] for x in batch), hp)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return list(grads), torch.stack([loss.detach(), pg, vl, ent]), kl
+
+        def chain():
+            return mlp_grad.launch(params, batch, idx, hp)
+
+        got, want = chain(), plain()
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(got[0], want[0]))
+        loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(
+            torch.cat([got[1], got[2][None]]).tolist(), torch.cat([want[1], want[2][None]]).tolist()))
+        W2 = params["trunk.1.weight"]
+        h1, dz2 = torch.randn(M, 256, device=dev), torch.randn(M, 256, device=dev)
+
+        def gemms():
+            torch.mm(h1, W2.t()), torch.mm(dz2.t(), h1), torch.mm(dz2, W2)
+
+        def graphed(fn):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(ADAM_CALLS):
+                    fn()
+            graph.replay()
+            torch.cuda.synchronize(dev)
+            return cuda_ms(graph.replay, 5) / ADAM_CALLS
+
+        flops = 2 * M * 256 * (3 * 256 + 2 * D + 3 * (A + 1))
+        r = dict(rel=rel, loss_err=loss_err, us=1e3 * graphed(chain),
+                 plain_us=1e3 * graphed(plain), gemm_us=1e3 * graphed(gemms),
+                 bound_us=1e6 * flops / F32_OPS_PER_S, flops=flops)
+        out[what] = r
+        print(f"  mlp_grad at the {what} (obs {D}, act {A}, {M} of {N} rows): largest leaf "
+              f"difference {rel:.2e} of its leaf's largest magnitude, losses and KL {loss_err:.2e}"
+              f" from PPO.loss + autograd; {r['us']:.1f} us per minibatch in a graph of "
+              f"{ADAM_CALLS} (bound {r['bound_us']:.1f} us: {flops / 1e9:.2f} GFLOP at 67 "
+              f"TFLOP/s; the three trunk GEMMs alone {r['gemm_us']:.1f} us), plain version "
+              f"{r['plain_us']:.1f} us  [{card_line}]", flush=True)
+        if not (rel <= MLP_GRAD_TOL and loss_err <= 1e-5):
+            raise AssertionError(f"mlp_grad at the {what}: {r}")
+    return out
+
+
 def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=False) -> dict:
     """Phase 17: ``LEARNER_UPDATES`` chained updates of the learner ``algo``
     from its ``init_state()`` (``hparams`` set through ``set_hparams``
@@ -2300,8 +2405,8 @@ def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=Fal
     normalizer, env state, generators) and of the metrics equal bit for bit,
     ``kl_stopped`` equal; launches counted just around the replays (n_steps x
     frameskip of the learner's kernel per update), the learner's graph
-    holding no tick kernel and two launches of ``adam_fused`` per
-    minibatch.  With ``stop_in_first`` the stop must fire inside update 1
+    holding no tick kernel, two launches of ``adam_fused`` per minibatch and,
+    for an MLP the chain takes (``PPO.fused_grad``), four of ``mlp_grad``.  With ``stop_in_first`` the stop must fire inside update 1
     (Adam's count then says at which minibatch)."""
     cfg = algo.cfg
     on_card(algo, what)
@@ -2333,6 +2438,9 @@ def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=Fal
     want = ({"step_fused": n, "solve_contacts": 0} if cfg.env_backend == "fused"
             else {"step_fused": 0, "solve_contacts": n})
     per_update = cfg.n_epochs * (cfg.n_steps * cfg.n_envs // cfg.batch_size)
+    hand = {"adam_fused": 2 * per_update}
+    if algo.fused_grad:
+        hand["mlp_grad"] = 4 * per_update
     print(f"  {what}: {LEARNER_UPDATES} chained updates, both CUDA graphs against the eager "
           f"bodies: {n_bad} elements differ (state, generators, metrics); kl_stopped (graph, "
           f"eager) and Adam count after each update "
@@ -2345,9 +2453,9 @@ def learner_against_eager(algo, card_line, what, hparams=None, stop_in_first=Fal
         raise AssertionError(f"{what}: kl_stopped differs: {stops}")
     if stop_in_first and not (stops[0][0] and stops[0][2] < per_update):
         raise AssertionError(f"{what}: the stop did not fire inside update 1: {stops}")
-    if launches != want or held.get("learner") != {"adam_fused": 2 * per_update}:
+    if launches != want or held.get("learner") != hand:
         raise AssertionError(f"{what}: launches {launches} (graphs hold {held}), expected "
-                             f"{want} and {2 * per_update} of adam_fused in the learner's graph")
+                             f"{want} and {hand} in the learner's graph")
     return dict(launches=launches, stops=stops, wall=wall, held=held["learner"])
 
 
@@ -2368,6 +2476,7 @@ def run_learner_graphs(card_line) -> dict:
     flat_cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()),
                                              **TRAIN_OVERRIDES)
     pixel_cfg, v2_cfg = PPOConfig(**CNN_CONFIG), v2_config()
+    mlp = check_mlp_grad(card_line)
     flat = PPO(flat_cfg)
     adam = {"v0": check_adam_fused(flat, card_line, "v0 recipe")}
     checks = {"v0": learner_against_eager(flat, card_line, "PPO at the v0 recipe"),
@@ -2427,7 +2536,7 @@ def run_learner_graphs(card_line) -> dict:
     for c in checks.values():
         for name, n in c["held"].items():
             held[name] = held.get(name, 0) + n
-    return dict(checks=checks, rates=rates, profiles=profiles, held=held, adam=adam,
+    return dict(checks=checks, rates=rates, profiles=profiles, held=held, adam=adam, mlp=mlp,
                 launches=sum(c["launches"]["step_fused"] for c in checks.values()))
 
 
@@ -2611,14 +2720,16 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        builds = [pool.submit(m.KERNEL.build) for m in (step_cuda, solver_cuda, adam_fused)]
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(m.KERNEL.build)
+                  for m in (step_cuda, solver_cuda, adam_fused, mlp_grad)]
         builds = [f.result() for f in builds]
     print(f"  built {', '.join(path.name for path, _ in builds)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in builds[2][1].splitlines():
-        if "Function properties" in line or "registers" in line or "stack frame" in line:
-            print(f"  ptxas: adam_fused: {line.strip()}", flush=True)
+    for name, (_path, log) in zip(("adam_fused", "mlp_grad"), builds[2:]):
+        for line in log.splitlines():
+            if "Function properties" in line or "registers" in line or "stack frame" in line:
+                print(f"  ptxas: {name}: {line.strip()}", flush=True)
     for m, (_path, log) in zip((step_cuda, solver_cuda), builds):
         report = cb.ptxas_report(log)
         if len(report) != len(cb.SIZE_CLASSES):
@@ -2811,6 +2922,12 @@ def main() -> int:
              **{f"{net}_active_rel_err": a["active"]["rel"]
                 for net, a in learner["adam"].items()},
              bound_by="bytes"),
+        dict(common, name="mlp_grad",
+             source="gym_puzzles_tpu_torch/csrc/mlp_grad.cu", replaces=None,
+             learner_graph_launches=learner["held"].get("mlp_grad", 0),
+             **{f"{what.split()[0]}_{key}": r[key] for what, r in learner["mlp"].items()
+                for key in ("us", "plain_us", "gemm_us", "bound_us", "rel")},
+             bound_by="operations"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

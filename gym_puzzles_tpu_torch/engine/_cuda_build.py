@@ -241,7 +241,8 @@ KERNELS: dict[str, "CudaKernel | PlainKernel"] = {}
 
 class PlainKernel:
     """A kernel source with a plain C interface and no world table
-    (:func:`load_plain`; the learner's ``csrc/adam_fused.cu``) whose launches
+    (:func:`load_plain`; the learner's ``csrc/adam_fused.cu`` and
+    ``csrc/mlp_grad.cu``) whose launches
     are counted as a :class:`CudaKernel`'s: :func:`launch_count` reads them,
     and a CUDA graph adds the launches it captured at each replay.  Its
     wrapper calls the C function and adds to :attr:`launches`."""

@@ -40,7 +40,8 @@ minibatch epochs and metrics on one rollout's Transition) as its graph's
 replay and as its eager body, then whole updates as both graphs and as the
 rollout graph with the eager learner, the same numbers per update; the
 learner graph's kernel nodes beside the launches of the hand-written kernels
-it holds per replay (``adam_fused``: two per minibatch); then whole updates
+it holds per replay (``adam_fused``: two per minibatch; ``mlp_grad``: four
+per minibatch at an MLP recipe, none at the pixel one); then whole updates
 split by the spans (the learner's ``learn.grad`` against ``learn.adam``),
 traced, and the cost of tracing.
 """

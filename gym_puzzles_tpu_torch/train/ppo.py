@@ -15,7 +15,10 @@ the JAX package's one jit-compiled train step (``ppo.py:219,249-470``):
 2. the learner (the body: :meth:`PPO.learn_steps`, replayed as a second CUDA
    graph on the card): the bootstrap value, GAE(gamma, lambda) advantages
    (:func:`compute_gae`), the minibatch orders, then ``n_epochs`` x minibatch
-   SGD with the clipped surrogate, entropy bonus, value loss, then
+   SGD with the clipped surrogate, entropy bonus, value loss (each
+   minibatch's gradient: on the card, for an MLP that ``train/mlp_grad.py``
+   takes, its chain of four hand-written CUDA kernels around the trunk's
+   three GEMMs; else :meth:`PPO.loss` and autograd), then
    (:func:`adam_freeze_step`) global-norm gradient clipping, an Adam step
    written as ``optax.scale_by_adam`` computes it, and the JAX package's
    target-KL stop as a device mask: on the card one hand-written CUDA kernel
@@ -47,7 +50,8 @@ host span ``ppo.update``, holding ``ppo.noise`` (the action noise's draw),
 ``ppo.generator`` (the learner generator's state, to the graph and back); on
 the device ``rollout.policy`` (normalize, forward, sample, log-prob) and the
 env's spans at each rollout step, then ``learn.gae`` (bootstrap and GAE),
-per minibatch ``learn.grad`` (gather, forward, loss, backward) and
+per minibatch ``learn.grad`` (gather, forward, loss, backward: with
+``PPO.fused_grad`` the seven launches of ``train/mlp_grad.py``) and
 ``learn.adam`` (:func:`adam_freeze_step`: on the card the two launches of the
 fused kernel pair, which clip, take the Adam step, freeze and test the KL),
 and ``learn.metrics``.  :class:`PhaseTimer` times the ``ppo.rollout`` and
@@ -76,7 +80,7 @@ from gym_puzzles_tpu_torch.api.vector import resolve_device
 from gym_puzzles_tpu_torch.engine.types import DeviceScalars, Replaceable
 from gym_puzzles_tpu_torch.envs.common import EnvState
 from gym_puzzles_tpu_torch.envs.config import RewardParams, _f32
-from gym_puzzles_tpu_torch.train import adam_fused
+from gym_puzzles_tpu_torch.train import adam_fused, mlp_grad
 from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import (ActorCritic, CnnActorCritic,
                                                   gaussian_entropy, gaussian_log_prob)
@@ -435,6 +439,9 @@ class PPO:
         self.use_obs_norm = cfg.normalize and self.obs_shape is None
         # the architecture; a TrainState's params are applied through it
         self.net = self.build_net(torch.Generator().manual_seed(cfg.seed)).to(self.device)
+        # the minibatch gradients: the hand-written chain of train/mlp_grad.py
+        # for an MLP it takes on the card, else PPO.loss and autograd
+        self.fused_grad = self.device.type == "cuda" and mlp_grad.takes(self.net)
         self.default_env_params = env.default_params()
         self._rollout_graph = None  # (GraphedStep, its Transition) on a CUDA device
         self._learner_graph = None  # (mesh, GraphedStep, its generator) on a CUDA device
@@ -698,7 +705,10 @@ class PPO:
         ``idxs`` in turn (``batch`` = flat obs, action, old log-prob,
         advantages, returns), with the target-KL stop of :meth:`learn_steps`
         (``hp`` as 0-d tensors) -> (params, opt_state, stop, kl_last, losses
-        [len(idxs), 4]: total, policy, value, entropy of each minibatch)."""
+        [len(idxs), 4]: total, policy, value, entropy of each minibatch).
+        Each minibatch's losses and gradients come from ``mlp_grad.launch``
+        when ``self.fused_grad`` (chosen once, from the network's type and
+        shape and the device), else from :meth:`loss` and autograd."""
         obs, action, old_lp, adv, ret = batch
         dev = self.device
         stop = torch.zeros((), dtype=torch.bool, device=dev)
@@ -707,16 +717,19 @@ class PPO:
         losses = []
         for idx in idxs:
             with device_span("learn.grad", dev):
-                loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx], old_lp[idx],
-                                                   adv[idx], ret[idx], hp)
-                grads = list(torch.autograd.grad(loss, list(params.values())))
+                if self.fused_grad:
+                    grads, row, kl = mlp_grad.launch(params, batch, idx, hp)
+                else:
+                    loss, (pg, vl, ent, kl) = self.loss(params, obs[idx], action[idx],
+                                                       old_lp[idx], adv[idx], ret[idx], hp)
+                    grads = list(torch.autograd.grad(loss, list(params.values())))
             if mesh is not None:
                 *grads, kl = mesh.mean(grads + [kl])
             with device_span("learn.adam", dev):
                 params, opt, stop, kl_last = adam_freeze_step(params, grads, opt, stop, kl,
                                                               kl_last, hp)
                 params = {k: v.requires_grad_() for k, v in params.items()}
-            losses.append(torch.stack([loss.detach(), pg, vl, ent]))
+            losses.append(row if self.fused_grad else torch.stack([loss.detach(), pg, vl, ent]))
         return ({k: v.detach() for k, v in params.items()}, opt, stop, kl_last,
                 torch.stack(losses))
 

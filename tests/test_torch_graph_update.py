@@ -299,5 +299,6 @@ def test_learner_replay_equals_eager_on_card(cuda_device):
     for want in got:
         ets, metrics = algo.train_step_eager(ets)
         assert_bitwise(want, (ckpt.to_tree(ets), metrics))
-    # the fused optimizer step's two launches per minibatch (2 epochs x 4)
-    assert algo.graph_launches["learner"] == {"adam_fused": 2 * 2 * 4}
+    # per minibatch (2 epochs x 4): the fused optimizer step's two launches
+    # and the minibatch gradient chain's four
+    assert algo.graph_launches["learner"] == {"adam_fused": 2 * 2 * 4, "mlp_grad": 4 * 2 * 4}

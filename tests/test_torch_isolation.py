@@ -53,6 +53,7 @@ import gym_puzzles_tpu_torch.api.gym_compat, gym_puzzles_tpu_torch.teleop
 import gym_puzzles_tpu_torch.train.scripted, gym_puzzles_tpu_torch.train.imitate
 import gym_puzzles_tpu_torch.train.sweep, gym_puzzles_tpu_torch.utils.profiling
 import gym_puzzles_tpu_torch.utils.cuda_graph
+import gym_puzzles_tpu_torch.train.adam_fused, gym_puzzles_tpu_torch.train.mlp_grad
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
 for env_id, backend in (("MultiRobotPuzzle-v0", "fused"), ("MultiRobotPuzzle-v0", "pallas"),
                         ("MultiRobotPuzzle-v2", "pallas"), ("MultiRobotPuzzleHeavy-v2", "fused"),
