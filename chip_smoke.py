@@ -135,10 +135,7 @@ Phases (each raises on failure; the script exits non-zero on any):
    16384 envs, a v0 and a v2 graph stepped in turn (each replay on its own
    world table), the image env at 256 envs and 60/20 (frames), and two
    chained ``PPO.rollout`` replays at the v0 and pixel recipes against
-   ``PPO.rollout_eager``; then, graph against eager in this call, the v0
-   main path's env-steps/s (in turns), and kernels run, host launch calls
-   and busy share per traced flat and pixel step
-   (``profile_step.profile_path``); peak device memory;
+   ``PPO.rollout_eager``; peak device memory;
 17. (run after 16) the MLP learner's minibatch gradient chain (``mlp_grad``)
    against ``PPO.loss`` + autograd at the v0 and Heavy-v0 X4 recipes' shapes,
    each leaf within ``MLP_GRAD_TOL`` of its largest magnitude, then us per
@@ -160,11 +157,7 @@ Phases (each raises on failure; the script exits non-zero on any):
    recipes, four of ``mlp_grad`` per minibatch, and no tick kernel: at the v0 recipe (default, then
    with ``target_kl`` set so that the stop fires inside the first update, on
    the same graphs), the pixel recipe (cuDNN deterministic) and the v2
-   recipe; then PPO env-steps/s past update 1 of each recipe with both
-   graphs and with the rollout graph and the eager learner (and at the v0
-   recipe both eager); and the v0 learner traced
-   (``profile_step.profile_learner``): kernels run, host launch calls,
-   device ms and busy share per update, graph against eager;
+   recipe;
 18. (run after 17) the v2 recipe's two legs as the train CLI runs them,
    ``PPO.train_step`` against ``PPO.train_step_eager`` side by side from one
    ``init_state``: 12 updates with the goal schedule over leg 1's 114, a
@@ -179,6 +172,9 @@ Phases (each raises on failure; the script exits non-zero on any):
    only those), and one JSON line describing each ported kernel (times,
    bound, launches);
 then the whole script's time; last line: ``{"ok": true, "device": {...}}``.
+Rates, traces and the main path's roofline shares are the benchmark's
+(``python3 -m portbench.run``); the kernels' bounds here count with its
+arithmetic (``portbench/yardstick.py``).
 
 Needs one CUDA card; imports nothing of JAX or the JAX package.
 """
@@ -201,7 +197,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.func import functional_call
 
-from gym_puzzles_tpu_torch import make, profile_step
+from gym_puzzles_tpu_torch import make
 from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzzleEnv
 from gym_puzzles_tpu_torch.api.image_obs import DeviceImageVectorEnv, ImageObsEnv
 from gym_puzzles_tpu_torch.api.registry import _logic
@@ -223,25 +219,17 @@ from gym_puzzles_tpu_torch.train.networks import ActorCritic, gaussian_log_prob
 from gym_puzzles_tpu_torch.train.ppo import (PPO, AdamState, HParams, PhaseTimer, PPOConfig,
                                              adam_freeze_plain, adam_freeze_step)
 from gym_puzzles_tpu_torch.utils import cuda_graph
+from portbench import yardstick
 
 ENV_ID = "MultiRobotPuzzle-v0"
 NUM_ENVS = 4096
 DT = 1.0 / 50.0
 MAIN_STEPS = 200
 VI, PI = 180, 60  # the reference's solver iterations
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-
-# Float32 operations per unit of work in csrc/tick.cuh and step_fused.cu,
-# counted from the source (each multiply, add, compare, min/max, select or
-# divide is one; cos/sin count as 20).  Pairs of two dynamic bodies ("dd")
-# update both; a dynamic-static pair only one.  Used for the kernel's bound.
-OPS_VEL_PAIR = {True: 209, False: 154}  # one velocity-sweep visit, by dd
-OPS_POS_PAIR = {True: 229, False: 157}  # one position-sweep visit (incremental trig)
-OPS_POS_SWEEP_BODY = 40  # cos/sin of each dynamic body once per position sweep
-OPS_SETUP_PAIR = 190  # constraint setup of a pair
-OPS_BODY = 150  # transforms, integration, islands and sleep per body
-OPS_SOLVE_BODY = 40  # the solve kernel alone: island labels and integration per body
+# Float32 operations of the solve kernel alone (island labels and integration)
+# per body, counted from csrc/solve_contacts.cu as portbench/yardstick.py
+# counts the tick's
+OPS_SOLVE_BODY = 40
 
 VARIANTS = ("MultiRobotPuzzle-v0", "MultiRobotPuzzleHeavy-v0", "MultiRobotPuzzle-v2",
             "MultiRobotPuzzle-v3")
@@ -276,8 +264,9 @@ REACH_COPIES = 16
 
 ROOT = Path(__file__).resolve().parent
 # phase 7: the JAX package's full-width v0 recipe (docs/BENCHMARKS.md:187)
-TRAIN_CONFIG = profile_step.V0_CONFIG
-TRAIN_OVERRIDES = profile_step.V0_OVERRIDES
+TRAIN_CONFIG = ROOT / "train_configs" / "ppo-mrp-v0.json"
+TRAIN_OVERRIDES = dict(n_envs=NUM_ENVS, n_steps=64, batch_size=8192, n_epochs=4,
+                       env_backend="fused", seed=0)
 TRAIN_UPDATES = 3
 TIMED_UPDATES = 2  # after the resumed update 3, each split by part
 # phase 8: the committed round-4 v0 policy and the bands around the JAX
@@ -293,7 +282,10 @@ RETURN_BAND = (5190.0, 6800.0)
 ACTION_TOL = 1e-5
 # phase 9: the JAX package's pixel recipe (docs/benchmarks/ppo_v0_cnn_r5_leg1.jsonl
 # line 1; the rest as PPOConfig's defaults), seed 0
-CNN_CONFIG = profile_step.PIXEL_RECIPE
+CNN_CONFIG = dict(env_id=ENV_ID, policy="cnn", n_envs=256, n_steps=32, batch_size=2048,
+                  n_epochs=2, learning_rate=2.5e-4, ent_coef=0.005, target_kl=0.01,
+                  normalize=True, env_backend="fused", velocity_iters=60, position_iters=20,
+                  seed=0)
 CNN_TIMED_UPDATES = 1  # after the resumed update 3
 # renderer on the card against the CPU: spawns and mode per variant, downsample 4
 RENDER_CASES = {"MultiRobotPuzzle-v0": (4096, "human_vision"),
@@ -402,15 +394,13 @@ HV0_ID, HV0_ENVS = "MultiRobotPuzzleHeavy-v0", 16384  # kernel A's large class a
 # fused with a reset(seed=1) after the capture, v2 with an update_goal change
 # half way), Heavy-v0 at 16384 envs, a v0 and a v2 graph stepped in turn,
 # the pixel path's image env, and two chained rollouts at the v0 and pixel
-# recipes; then graph against eager rates and kernels per step in this call
+# recipes
 GRAPH_CHANGE_AT = MAIN_STEPS // 2
 GRAPH_SHORT_STEPS = 50  # Heavy-v0 at 16384 envs, the alternating pair, the image env
-PROFILE_STEPS = 20
 # phase 17: the learner as a CUDA graph: two chained updates, graph replays
 # against the eager body, at the v0 recipe (default, then with target_kl set
 # so that the stop fires inside the first update, on the same graphs), the
-# pixel recipe and the v2 recipe; then PPO env-steps/s past update 1 of each
-# (three modes at the v0 recipe, the learner's two at the others)
+# pixel recipe and the v2 recipe
 LEARNER_UPDATES = 2
 LEARNER_STOP_KL = 5e-4
 ADAM_CALLS = 20  # chained optimizer steps in each timed CUDA graph
@@ -419,9 +409,6 @@ ADAM_CALLS = 20  # chained optimizer steps in each timed CUDA graph
 MLP_GRAD_SHAPES = {"v0 recipe": (28, 6, 8192, 4096 * 64, 0.2),
                    "Heavy-v0 X4 recipe": (40, 15, 16384, 16384 * 64, 0.1)}
 MLP_GRAD_TOL = 5e-5  # of each leaf's largest magnitude, against PPO.loss + autograd
-RATE_UPDATES = 3  # PPO rates: env-steps/s past update 1 of these
-RATE_MODES = {"graphs": (True, True), "rollout graph, eager learner": (True, False),
-              "eager": (False, False)}
 # phase 18: the v2 recipe's two legs as the CLI runs them, graph against eager
 # side by side: CHAIN_UPDATES updates of leg 1 (the goal schedule over its
 # updates), a save, a restore into fresh learners with leg 2's overrides
@@ -443,66 +430,26 @@ def maxdiff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def narrowphase_ops(table) -> list[int]:
-    """SAT + clip operations of one narrow-phase visit, per pair."""
-    ops = []
-    for p in range(table.num_pairs):
-        ca = int(table.fix_count[table.pair_fix_a[p]])
-        cb = int(table.fix_count[table.pair_fix_b[p]])
-        ops.append(28 + ca * (20 + 4 * cb) + cb * (20 + 4 * ca) + 5 * max(ca, cb) + 120)
-    return ops
-
-
-def sweep_ops(table, vel_rows, pos_rows, vel_iters, pos_iters) -> int:
-    """Float32 operations of the velocity and position sweeps over the live
-    rows: ``vel_rows[p]`` / ``pos_rows[p]`` envs visit pair ``p`` in a
-    velocity / position sweep."""
-    dyn = ~table.is_static
-    ops = 0
-    for p, (nv, np_) in enumerate(zip(vel_rows, pos_rows)):
-        dd = bool(dyn[table.pair_body_a[p]] and dyn[table.pair_body_b[p]])
-        ops += nv * vel_iters * OPS_VEL_PAIR[dd] + np_ * pos_iters * OPS_POS_PAIR[dd]
-    return ops
-
-
 def bound(nbytes, ops, live_rows) -> dict:
     """The larger of bytes at the HBM rate and operations at the float32
     rate, in ms, with what bounds it and its parts."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes = nbytes / yardstick.HBM_BYTES_PER_S
+    t_ops = ops / yardstick.F32_FLOPS_PER_S
     return dict(ms=1e3 * max(t_bytes, t_ops), by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops, live_rows=live_rows,
                 bytes_ms=1e3 * t_bytes, ops_ms=1e3 * t_ops)
 
 
 def kernel_bound(table, bf, live, vel_iters, pos_iters) -> dict:
-    """Least time the card could take for one fused tick of these envs: the
-    bytes it must move at the HBM rate, against the float32 operations it
-    must do at the float32 rate, counted from this run's inputs (``bf`` the
-    body input planes, ``live`` [P, E] the pairs with manifold points and an
-    active body).  A pair whose two bodies are dynamic and asleep keeps its
-    stored manifold: only there are its 10 manifold planes read and the
-    narrow phase not needed.  Constraint setup and the sweeps run over the
-    live pairs, the position sweeps' per-body cos/sin only in envs with
-    one."""
-    B, P = table.num_bodies, table.num_pairs
-    E = live.shape[-1]
-    planes = bf.view(len(step_cuda.B_IN), B, E)
-    static = torch.as_tensor(table.is_static, device=bf.device)[:, None]
-    aw = ((planes[step_cuda.B_IN.index("awake")] > 0.5)
-          | (planes[step_cuda.B_IN.index("wake")] > 0.5) | static)
-    pair_body = lambda x: torch.as_tensor(x, dtype=torch.long, device=bf.device)
-    # [P, E]: pairs whose new manifold the narrow phase decides
-    upd = aw[pair_body(table.pair_body_a)] | aw[pair_body(table.pair_body_b)]
-    # body planes 12 in, 8 out; per pair touch, 2 ids, 4 impulses in, 17 + 2 out
-    words = E * ((12 + 8) * B + (7 + 19) * P) + 10 * int((~upd).sum())
-    n_dyn = int((~table.is_static).sum())
-    per_pair = live.sum(dim=-1).tolist()
-    ops = (E * OPS_BODY * B
-           + sum(n * c for n, c in zip(narrowphase_ops(table), upd.sum(dim=-1).tolist()))
-           + OPS_SETUP_PAIR * sum(per_pair)
-           + pos_iters * OPS_POS_SWEEP_BODY * n_dyn * int(live.any(dim=0).sum()))
-    ops += sweep_ops(table, per_pair, per_pair, vel_iters, pos_iters)
-    return bound(4 * words, ops, int(sum(per_pair)))
+    """Least time the card could take for one fused tick of these envs,
+    counted by ``yardstick.tick_work`` from this run's inputs: ``bf`` the
+    body input planes (awake or woken this tick), ``live`` [P, E] the pairs
+    with manifold points and an active body."""
+    planes = bf.view(len(step_cuda.B_IN), table.num_bodies, live.shape[-1])
+    awake = ((planes[step_cuda.B_IN.index("awake")] > 0.5)
+             | (planes[step_cuda.B_IN.index("wake")] > 0.5))
+    nbytes, ops = yardstick.tick_work(table, awake, live, vel_iters, pos_iters)
+    return bound(nbytes, ops, int(live.sum()))
 
 
 def solve_bound(table, vc, man, vel_iters, pos_iters) -> dict:
@@ -520,9 +467,9 @@ def solve_bound(table, vc, man, vel_iters, pos_iters) -> dict:
              + 22 * int(vel.sum()) + 9 * int(pos.sum()))
     n_dyn = int((~table.is_static).sum())
     ops = (E * OPS_SOLVE_BODY * B
-           + pos_iters * OPS_POS_SWEEP_BODY * n_dyn * int(pos.any(dim=0).sum()))
-    ops += sweep_ops(table, vel.sum(dim=-1).tolist(), pos.sum(dim=-1).tolist(), vel_iters,
-                     pos_iters)
+           + pos_iters * yardstick.OPS_POS_SWEEP_BODY * n_dyn * int(pos.any(dim=0).sum())
+           + yardstick.sweep_ops(table, vel.sum(dim=-1).tolist(), vel_iters, 0)
+           + yardstick.sweep_ops(table, pos.sum(dim=-1).tolist(), 0, pos_iters))
     return bound(4 * words, ops, int(vel.sum()))
 
 
@@ -906,24 +853,21 @@ def cuda_ms(fn, n) -> float:
     return start.elapsed_time(stop) / n
 
 
-def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STEPS,
-                  eager=False) -> dict:
+def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STEPS) -> dict:
     """``steps`` env steps of random actions through ``make`` at 4096 envs
-    and 180/60 (``env.step``, CUDA graph replays; with ``eager``, the body
-    the graph captures, ``env.step_eager``), with the launch counts set to 0
+    and 180/60 (``env.step``, CUDA graph replays), with the launch counts set to 0
     just before and read just after: the path's kernel must have run steps x
     frameskip times and the other kernel not at all.  Returns the launches,
     the rate, and the env and its state at the end."""
     env = make(env_id, num_envs=NUM_ENVS, backend=backend)
     if env.device.type != "cuda":
         raise AssertionError(f"make() defaulted to {env.device}")
-    step = env.step_eager if eager else env.step
     state, obs = env.reset(seed=0)
     gen = torch.Generator(device=dev).manual_seed(1)
     acts = torch.rand((steps + 10, NUM_ENVS, env.cfg.act_dim), generator=gen,
                       device=dev) * 2 - 1
     for k in range(10):  # warm-up (the first step captures the graph)
-        state, obs, reward, done, info = step(state, acts[steps + k])
+        state, obs, reward, done, info = env.step(state, acts[steps + k])
     torch.cuda.synchronize()
 
     step_cuda.reset_launch_count()
@@ -931,14 +875,14 @@ def run_main_path(dev, card_line, env_id=ENV_ID, backend="fused", steps=MAIN_STE
     start.record()
     finite = torch.ones((), dtype=torch.bool, device=dev)
     for k in range(steps):
-        state, obs, reward, done, info = step(state, acts[k])
+        state, obs, reward, done, info = env.step(state, acts[k])
         finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
     stop.record()
     stop.synchronize()
     launches = launch_counts()
     elapsed_s = start.elapsed_time(stop) / 1e3
 
-    name = f"{env_id} backend={backend}{' eager body' if eager else ''}"
+    name = f"{env_id} backend={backend}"
     mine, other = (("step_fused", "solve_contacts") if backend == "fused"
                    else ("solve_contacts", "step_fused"))
     if launches[mine] != steps * env.cfg.frameskip or launches[other] != 0:
@@ -2197,26 +2141,6 @@ def rollout_against_eager(cfg, card_line, what) -> dict:
     return dict(launches=launches)
 
 
-def ppo_rate(cfg, mode: str) -> tuple:
-    """``RATE_UPDATES`` updates of a fresh learner at ``cfg`` in ``mode`` (of
-    ``RATE_MODES``: which of the rollout and the learner replay their CUDA
-    graph): (env-steps/s past update 1 including the learner, each update's
-    wall seconds, each update's ``kl_stopped`` and Adam count after it)."""
-    rollout_graph, learner_graph = RATE_MODES[mode]
-    algo = PPO(cfg)
-    ts = algo.init_state()
-    walls, stops = [], []
-    for _ in range(RATE_UPDATES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, metrics = algo._train_step(ts, None, None, None, None, rollout_graph,
-                                       learner_graph)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        stops.append((bool(metrics["kl_stopped"]), int(ts.opt_state.count)))
-    return (RATE_UPDATES - 1) * cfg.n_steps * cfg.n_envs / sum(walls[1:]), walls, stops
-
-
 def check_adam_fused(algo, card_line, what) -> dict:
     """Phase 17: the fused optimizer step (``ppo.adam_freeze_step`` on the
     card: ``train/adam_fused.py``) against its plain version
@@ -2286,7 +2210,7 @@ def check_adam_fused(algo, card_line, what) -> dict:
     out["ms"] = graphed(adam_freeze_step)
     out["capture_launches"] = cb.launch_count("adam_fused") - before
     out["plain_ms"] = graphed(adam_freeze_plain)
-    out["bound_ms"] = 1e3 * 7 * 4 * n / HBM_BYTES_PER_S
+    out["bound_ms"] = 1e3 * 7 * 4 * n / yardstick.HBM_BYTES_PER_S
     print(f"  adam_fused at the {what}'s {len(shapes)} leaves, {n:,} parameters: clip inactive "
           f"{out['inactive']['differ']} elements differ from the plain version, clip active "
           f"largest difference {out['active']['rel']:.2e} of its leaf's largest magnitude "
@@ -2382,7 +2306,7 @@ def check_mlp_grad(card_line) -> dict:
         flops = 2 * M * 256 * (3 * 256 + 2 * D + 3 * (A + 1))
         r = dict(rel=rel, loss_err=loss_err, us=1e3 * graphed(chain),
                  plain_us=1e3 * graphed(plain), gemm_us=1e3 * graphed(gemms),
-                 bound_us=1e6 * flops / F32_OPS_PER_S, flops=flops)
+                 bound_us=1e6 * flops / yardstick.F32_FLOPS_PER_S, flops=flops)
         out[what] = r
         print(f"  mlp_grad at the {what} (obs {D}, act {A}, {M} of {N} rows): largest leaf "
               f"difference {rel:.2e} of its leaf's largest magnitude, losses and KL {loss_err:.2e}"
@@ -2467,12 +2391,8 @@ def v2_config() -> PPOConfig:
 def run_learner_graphs(card_line) -> dict:
     """Phase 17: :func:`learner_against_eager` at the v0 recipe (default,
     then ``target_kl = LEARNER_STOP_KL`` on the same learner, whose graphs it
-    replays), the pixel recipe (cuDNN held deterministic) and the v2 recipe;
-    then PPO env-steps/s past update 1 (``RATE_MODES``: all three at the v0
-    recipe, the graphed and the eager learner at the others) and the v0
-    learner traced (``profile_step.profile_learner``): kernels run, host
-    launch calls, device ms per update and busy share, graph against
-    eager."""
+    replays), the pixel recipe (cuDNN held deterministic) and the v2 recipe,
+    after the gradient and optimizer kernels against their plain versions."""
     flat_cfg = PPOConfig.from_reference_json(json.loads(TRAIN_CONFIG.read_text()),
                                              **TRAIN_OVERRIDES)
     pixel_cfg, v2_cfg = PPOConfig(**CNN_CONFIG), v2_config()
@@ -2496,47 +2416,11 @@ def run_learner_graphs(card_line) -> dict:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     checks["v2"] = learner_against_eager(PPO(v2_cfg), card_line, "PPO at the v2 recipe")
 
-    # every mode at the v0 recipe; the learner's two at the others
-    rates = {}
-    for name, cfg, modes in (("v0 recipe", flat_cfg, RATE_MODES),
-                             ("pixel recipe", pixel_cfg, list(RATE_MODES)[:2]),
-                             ("v2 recipe", v2_cfg, list(RATE_MODES)[:2])):
-        for mode in modes:
-            rate, walls, stops = ppo_rate(cfg, mode)
-            rates[(name, mode)] = rate
-            print(f"  PPO at the {name}, {mode}: updates {', '.join(f'{w:.3f}' for w in walls)}"
-                  f" s; {rate:,.0f} env-steps/s past update 1; kl_stopped and Adam count after "
-                  f"each update {', '.join(f'{a} {c}' for a, c in stops)}  [{card_line}]",
-                  flush=True)
-    # the pixel learner's trace: python -m gym_puzzles_tpu_torch.profile_step --learner --pixels
-    profiles = {"v0 recipe": profile_step.profile_learner(flat_cfg, suffix=f"  [{card_line}]",
-                                                         spans=False)}
-    print("  graph against eager: PPO env-steps/s past update 1 "
-          + "; ".join(f"{name} {rates[(name, 'graphs')]:,.0f} against "
-                      f"{rates[(name, 'rollout graph, eager learner')]:,.0f} (eager learner)"
-                      + (f" and {rates[(name, 'eager')]:,.0f} (both eager)"
-                         if (name, "eager") in rates else "")
-                      for name in ("v0 recipe", "pixel recipe", "v2 recipe"))
-          + "; per learner "
-          + "; ".join(f"{name} kernels {p['learner_graph']['kernels_per_step']:.0f} against "
-                      f"{p['learner_eager']['kernels_per_step']:.0f}, host launch calls "
-                      f"{p['learner_graph']['host_launch_calls_per_step']:.0f} against "
-                      f"{p['learner_eager']['host_launch_calls_per_step']:.0f}, device ms "
-                      f"{p['learner_graph']['device_ms_per_step']:.2f} against "
-                      f"{p['learner_eager']['device_ms_per_step']:.2f}, busy share "
-                      f"{p['learner_graph']['device_busy_share']:.3f} against "
-                      f"{p['learner_eager']['device_busy_share']:.3f}"
-                      for name, p in profiles.items())
-          + "; host launch calls per whole update "
-          + "; ".join(f"{name} {p['update_graphs']['host_launch_calls_per_step']:.0f} against "
-                      f"{p['update_learner_eager']['host_launch_calls_per_step']:.0f}"
-                      for name, p in profiles.items())
-          + f"  [{card_line}]", flush=True)
     held = {}
     for c in checks.values():
         for name, n in c["held"].items():
             held[name] = held.get(name, 0) + n
-    return dict(checks=checks, rates=rates, profiles=profiles, held=held, adam=adam, mlp=mlp,
+    return dict(checks=checks, held=held, adam=adam, mlp=mlp,
                 launches=sum(c["launches"]["step_fused"] for c in checks.values()))
 
 
@@ -2627,12 +2511,10 @@ def run_chain(card_line) -> dict:
     return launches["graph"]["step_fused"] + launches["eager"]["step_fused"]
 
 
-def run_graphs(dev, card_line) -> dict:
+def run_graphs(dev, card_line):
     """Phase 16 (constants ``GRAPH_*``): each CUDA graph of the main path
-    against its eager body, bit for bit, launches exact; then graph against
-    eager from this call: env-steps/s of the v0 main path, kernels per step
-    and busy share traced (``profile_step.profile_path``); peak device
-    memory.  (PPO rates: phase 17.)"""
+    against its eager body, bit for bit, launches exact; peak device
+    memory."""
     print(f"  peak device memory of phases 1-15: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated  [{card_line}]",
           flush=True)
@@ -2677,33 +2559,10 @@ def run_graphs(dev, card_line) -> dict:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
-    # graph against eager, in turns, this call
-    runs = {"graph": [], "eager": []}
-    for eager in (False, True, True, False):
-        r = run_main_path(dev, card_line, eager=eager)
-        runs["eager" if eager else "graph"].append(r["env_steps_per_s"])
-    flat = profile_step.profile_path(PROFILE_STEPS, suffix=f"  [{card_line}]", spans=False)
-    pixel = profile_step.profile_path(PROFILE_STEPS, pixels=True, suffix=f"  [{card_line}]",
-                                      spans=False)
-    print(f"  graph against eager, v0 fused 4096 envs {VI}/{PI}: env-steps/s "
-          f"{np.mean(runs['graph']):,.0f} against {np.mean(runs['eager']):,.0f} (each the mean "
-          f"of 2 windows, in turns); kernels run per step {flat['graph']['kernels_per_step']:.1f}"
-          f" against {flat['eager']['kernels_per_step']:.1f}, host launch calls per step "
-          f"{flat['graph']['host_launch_calls_per_step']:.1f} against "
-          f"{flat['eager']['host_launch_calls_per_step']:.1f}, busy share "
-          f"{flat['graph']['device_busy_share']:.3f} against "
-          f"{flat['eager']['device_busy_share']:.3f}; pixel step (256 envs, 60/20) kernels "
-          f"{pixel['graph']['kernels_per_step']:.1f} against "
-          f"{pixel['eager']['kernels_per_step']:.1f}, host launch calls "
-          f"{pixel['graph']['host_launch_calls_per_step']:.1f} against "
-          f"{pixel['eager']['host_launch_calls_per_step']:.1f}, busy share "
-          f"{pixel['graph']['device_busy_share']:.3f} against "
-          f"{pixel['eager']['device_busy_share']:.3f} (PPO rates: phase 17)  [{card_line}]",
-          flush=True)
     print(f"  peak device memory of phase 16: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB allocated  [{card_line}]",
           flush=True)
-    return dict(main_graph=runs["graph"], main_eager=runs["eager"], flat=flat, pixel=pixel)
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2844,13 +2703,12 @@ def main() -> int:
     print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     print("== 16. the env step, the image env step and the rollout as CUDA graphs against "
-          "their eager bodies; graph against eager", flush=True)
+          "their eager bodies", flush=True)
     t_phase = time.perf_counter()
     run_graphs(dev, card_line)
     print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    print("== 17. the learner as a CUDA graph against its eager body; graph against eager",
-          flush=True)
+    print("== 17. the learner as a CUDA graph against its eager body", flush=True)
     t_phase = time.perf_counter()
     learner = run_learner_graphs(card_line)
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -86,44 +86,44 @@ def flatten(tree) -> tuple[list, tuple]:
     in ``spec``.  Two trees with equal specs have leaves of equal shape and
     dtype, in the same places."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return ("tensor", tuple(x.shape), x.dtype, x.device)
-        if isinstance(x, DeviceScalars):
-            leaves.append(x)
-            return ("params", type(x))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return ("dataclass", type(x), names, tuple(walk(getattr(x, n)) for n in names))
-        if isinstance(x, dict):
-            return ("dict", tuple(x), tuple(walk(v) for v in x.values()))
-        if isinstance(x, (list, tuple)):
-            return (type(x), tuple(walk(v) for v in x))
-        return ("static", x)
 
-    spec = walk(tree)
-    return leaves, spec
+def _walk(x, leaves: list):
+    # not a closure: a recursive inner function would hold itself and the
+    # leaves in a reference cycle, alive until the cyclic collector runs
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return ("tensor", tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, DeviceScalars):
+        leaves.append(x)
+        return ("params", type(x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return ("dataclass", type(x), names, tuple(_walk(getattr(x, n), leaves) for n in names))
+    if isinstance(x, dict):
+        return ("dict", tuple(x), tuple(_walk(v, leaves) for v in x.values()))
+    if isinstance(x, (list, tuple)):
+        return (type(x), tuple(_walk(v, leaves) for v in x))
+    return ("static", x)
 
 
 def unflatten(spec, leaves):
     """The tree of ``spec`` with ``leaves`` (an iterable) in its leaf places."""
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        kind = s[0]
-        if kind in ("tensor", "params"):
-            return next(it)
-        if kind == "dataclass":
-            return s[1](**{n: build(c) for n, c in zip(s[2], s[3])})
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(s[1], s[2])}
-        if kind == "static":
-            return s[1]
-        return kind(build(c) for c in s[1])
 
-    return build(spec)
+def _build(s, it):
+    kind = s[0]
+    if kind in ("tensor", "params"):
+        return next(it)
+    if kind == "dataclass":
+        return s[1](**{n: _build(c, it) for n, c in zip(s[2], s[3])})
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(s[1], s[2])}
+    if kind == "static":
+        return s[1]
+    return kind(_build(c, it) for c in s[1])
 
 
 def _strides(t: torch.Tensor) -> tuple:

@@ -42,8 +42,8 @@ rollout ends in, after its update's spans have closed).
 over a block, written as one Chrome trace (``<dir>/trace.json``) whose rows
 hold the profiler's events and the program's host and device spans, the
 device spans put on the profiler's clock by a fit of the stamps' kernels.
-:func:`traced_calls` runs a step function the way ``profile_step.py`` and
-the benchmark read the spans: timed with tracing on, then under :func:`trace`.
+:func:`traced_calls` runs a step function the way the benchmark reads the
+spans: timed with tracing on, then under :func:`trace`.
 """
 
 from __future__ import annotations

@@ -338,6 +338,22 @@ def test_weak_call_keeps_no_cycle():
         gc.enable()
 
 
+def test_flatten_keeps_no_cycle():
+    """A tensor passed through ``flatten`` and one placed by ``unflatten`` are
+    freed by their reference counts alone: a replay's inputs and outputs do
+    not wait for the cyclic collector."""
+    gc.disable()
+    try:
+        x, y = torch.zeros(3), torch.ones(3)
+        leaves, spec = cg.flatten({"a": (x, [1.0]), "b": [x + 1]})
+        tree = cg.unflatten(spec, [y, y + 1])
+        refs = [weakref.ref(t) for t in (x, y, leaves[1], tree["b"][0])]
+        del x, y, leaves, tree
+        assert [r() is None for r in refs] == [True] * len(refs)  # x, y, one of each
+    finally:
+        gc.enable()
+
+
 def test_graphed_step_needs_cuda():
     with pytest.raises(ValueError, match="CUDA device"):
         cg.GraphedStep(lambda c: (c,), "cpu")

@@ -39,7 +39,7 @@ from gym_puzzles_tpu_torch.api.gym_compat import GymnasiumVectorAdapter, GymPuzz
 from gym_puzzles_tpu_torch.api.image_obs import ImageObsEnv
 from gym_puzzles_tpu_torch.train import imitate, sweep
 from gym_puzzles_tpu_torch.train.ppo import PPOConfig
-import gym_puzzles_tpu_torch.convert, gym_puzzles_tpu_torch.profile_step
+import gym_puzzles_tpu_torch.convert
 import gym_puzzles_tpu_torch.bench_kernels
 import gym_puzzles_tpu_torch.engine.solver_cuda, gym_puzzles_tpu_torch.engine.step_cuda
 import gym_puzzles_tpu_torch.engine._cuda_build

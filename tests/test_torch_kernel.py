@@ -16,7 +16,9 @@ On the CPU:
   v2; the v0 world in both, bitwise equal); two islands of which one
   converges early, seen through the sleep flags;
 * a table beyond the kernel's compile-time maxima is refused, and each
-  world gets the smallest instantiation it fits.
+  world gets the smallest instantiation it fits;
+* ``chip_smoke.py``'s bounds of both kernels count the bytes, operations and
+  live rows they counted before they moved onto ``portbench/yardstick.py``.
 """
 
 import ctypes
@@ -247,6 +249,32 @@ def test_host_kernel_island_done_early(host_kernel):
         assert torch.equal(bk.awake, bp.awake)
         torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-5)
         torch.testing.assert_close(ck.normal_impulse, cp.normal_impulse, rtol=0, atol=1e-5)
+
+
+# chip_smoke.py's bounds on 256 spawns (seed 0, one tick at 180/60), counted
+# before they moved onto portbench/yardstick.py's arithmetic: (bytes, float32
+# operations, live rows) of kernel A (``kernel_bound``) and kernel B
+# (``solve_bound``, the second tick's constraints)
+BOUND_COUNTS = {("A", "MultiRobotPuzzle-v0"): (702_464, 14_515_966, 253),
+                ("A", "MultiRobotPuzzle-v2"): (1_554_432, 23_750_180, 302),
+                ("B", "MultiRobotPuzzle-v0"): (345_356, 9_959_020, 227),
+                ("B", "MultiRobotPuzzle-v2"): (657_064, 6_070_960, 106)}
+
+
+@pytest.mark.parametrize("kernel, env_id", list(BOUND_COUNTS))
+def test_chip_smoke_bound_counts(kernel, env_id):
+    import chip_smoke
+
+    dev = torch.device("cpu")
+    if kernel == "A":
+        table, contacts, bodies, force, torque, wake = chip_smoke.spawn_tick(dev, 256, 0, env_id)
+        bf, _pf, _pi = step_cuda.pack(bodies, contacts, force, torque, wake)
+        live = _cuda_build.live_pairs(table, bodies, contacts, force, torque, wake, DT)
+        b = chip_smoke.kernel_bound(table, bf, live, 180, 60)
+    else:
+        table, solve_args = chip_smoke.spawn_solve_args(dev, 256, 0, env_id)
+        b = chip_smoke.solve_bound(table, *solve_args[:2], 180, 60)
+    assert (b["bytes"], b["ops"], b["live_rows"]) == BOUND_COUNTS[kernel, env_id]
 
 
 @pytest.fixture
