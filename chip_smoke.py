@@ -5,11 +5,11 @@
 
 Phases (each raises on failure; the script exits non-zero on any):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build both tick kernels and the learner's fused optimizer step from
-   ``gym_puzzles_tpu_torch/csrc`` (one nvcc each, started together, sm_90a)
-   and print the build time and, for every instantiation (size class) of
-   each tick kernel and each of the optimizer's two kernels, ptxas'
-   registers, stack frame and spills;
+2. build both tick kernels, the learner's fused optimizer step and gradient
+   chain and the v0 env's two kernels from ``gym_puzzles_tpu_torch/csrc``
+   (one nvcc each, started together, sm_90a) and print the build time and,
+   for every instantiation (size class) of each tick kernel and each of the
+   other kernels, ptxas' registers, stack frame and spills;
 3. hold the fused tick kernel against its plain PyTorch version
    (``world.step``) on the card: the injected 3-body push world (10 ticks at
    8/4), v0 random spawns at 4096 envs (1 tick at 180/60), 1000 envs (the
@@ -127,8 +127,9 @@ Phases (each raises on failure; the script exits non-zero on any):
    slices, and both kernels timed there;
 16. (run after 15) the CUDA graphs against the eager bodies they capture,
    every output bit for bit (``mismatches``: the elements whose bits
-   differ), launches exact (each graph holds ``frameskip`` launches; two per
-   tick, replay and eager): 200 steps at 4096 envs and 180/60 of v0,
+   differ), launches exact (each graph holds ``frameskip`` launches, and at
+   v0 and Heavy-v0 one of each of the env logic's two kernels; two per tick,
+   replay and eager): 200 steps at 4096 envs and 180/60 of v0,
    Heavy-v0, v2 and v3 on both ticks (v0 fused reseeded by ``reset(seed=1)``
    after the capture, v2 with ``update_goal`` changed half way) and of v3
    with five heavy agents fused, Heavy-v0 at
@@ -167,10 +168,16 @@ Phases (each raises on failure; the script exits non-zero on any):
    updates: 0 differing elements in every update's state and metrics and
    in the restored states, 24 x 64 kernel-A launches each way, each graph
    captured once per learner, the schedule the CLI's;
-6. (run after 7-18) both kernels' times per variant, beside the mean
-   and warp-max live pairs per env of the inputs timed (the sweeps visit
-   only those), and one JSON line describing each ported kernel (times,
-   bound, launches);
+6. (run after 7-18) the v0 env's ``control`` and ``score_respawn`` kernels
+   (``envs/v0_cuda.py``) at 4096 v0 and 16384 Heavy-v0 envs, from fresh
+   spawns, after 50 random steps and at a step where every env truncates:
+   against their plain versions on the same inputs (0 differing elements in
+   the exact outputs, the float ones' largest differences), ``RESPAWNS`` of
+   a traced launch, us per launch in a CUDA graph beside the bound (bytes
+   at 3.35 TB/s) and the plain version's time (``check_env_logic``); both
+   tick kernels' times per variant, beside the mean and warp-max live pairs
+   per env of the inputs timed (the sweeps visit only those), and one JSON
+   line describing each hand-written kernel (times, bound, launches);
 then the whole script's time; last line: ``{"ok": true, "device": {...}}``.
 Rates, traces and the main path's roofline shares are the benchmark's
 (``python3 -m portbench.run``); the kernels' bounds here count with its
@@ -204,6 +211,9 @@ from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import shapes as shp
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda, types, world
+from gym_puzzles_tpu_torch.envs import common as env_common
+from gym_puzzles_tpu_torch.envs import v0_cuda
+from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
 from gym_puzzles_tpu_torch.envs.config import V2_EPSILON
 from gym_puzzles_tpu_torch.envs.config import VARIANTS as VARIANT_CFGS
 from gym_puzzles_tpu_torch.render import _raster_cpp
@@ -218,7 +228,7 @@ from gym_puzzles_tpu_torch.train import normalize as nrm
 from gym_puzzles_tpu_torch.train.networks import ActorCritic, gaussian_log_prob
 from gym_puzzles_tpu_torch.train.ppo import (PPO, AdamState, HParams, PhaseTimer, PPOConfig,
                                              adam_freeze_plain, adam_freeze_step)
-from gym_puzzles_tpu_torch.utils import cuda_graph
+from gym_puzzles_tpu_torch.utils import cuda_graph, profiling
 from portbench import yardstick
 
 ENV_ID = "MultiRobotPuzzle-v0"
@@ -404,6 +414,13 @@ GRAPH_SHORT_STEPS = 50  # Heavy-v0 at 16384 envs, the alternating pair, the imag
 LEARNER_UPDATES = 2
 LEARNER_STOP_KL = 5e-4
 ADAM_CALLS = 20  # chained optimizer steps in each timed CUDA graph
+# phase 6: the v0 env's control and score_respawn kernels (envs/v0_cuda.py),
+# each timed per launch in a CUDA graph of ENV_LOGIC_CALLS, at v0's and
+# Heavy-v0's widths, from fresh spawns, after ENV_LOGIC_STEPS random steps,
+# and at a step where every env truncates (every env respawned)
+ENV_LOGIC_CALLS = 20
+ENV_LOGIC_STEPS = 50
+ENV_LOGIC_WORLDS = ((ENV_ID, NUM_ENVS), ("MultiRobotPuzzleHeavy-v0", 16384))
 # the MLP learner's minibatch gradient (mlp_grad) at the recipes' shapes:
 # (obs_dim, act_dim, minibatch rows, flat batch rows, clip_range)
 MLP_GRAD_SHAPES = {"v0 recipe": (28, 6, 8192, 4096 * 64, 0.2),
@@ -1297,6 +1314,8 @@ def tree_map(fn, x):
                           for f in dataclasses.fields(x)})
     if isinstance(x, dict):
         return {k: tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(tree_map(fn, v) for v in x)
     return fn(x) if isinstance(x, torch.Tensor) else x
 
 
@@ -2042,7 +2061,8 @@ def replay_against_eager(dev, card_line, pairs, steps, what, backend, change=Non
     step k; ``reseed_at`` reseeds both envs with ``reset(seed=1)`` before that
     step.  Launch counts set to 0 just before and read just after: two
     launches of ``backend``'s kernel per tick (replay and eager) and none of
-    the other; each graph holds ``frameskip`` launches."""
+    the other; each graph holds ``frameskip`` launches, and at v0 and
+    Heavy-v0 one of each of the env logic's kernels (``envs/v0_cuda.py``)."""
     states, acts, params = [], [], []
     gen = torch.Generator(device=dev).manual_seed(1)
     for graphed, eager in pairs:
@@ -2081,8 +2101,11 @@ def replay_against_eager(dev, card_line, pairs, steps, what, backend, change=Non
           flush=True)
     if n_bad:
         raise AssertionError(f"{what}: replays differ from the eager body in {n_bad} elements")
+    env_kernels = lambda env: ({v0_cuda.CONTROL.name: 1, v0_cuda.SCORE.name: 1}  # noqa: E731
+                               if env.logic.fused_logic(dev) else {})
     if launches[mine] != want or launches[other] != 0 or any(
-            h != {mine: graphed.cfg.frameskip} for h, (graphed, _) in zip(held, pairs)):
+            h != {mine: graphed.cfg.frameskip, **env_kernels(graphed)}
+            for h, (graphed, _) in zip(held, pairs)):
         raise AssertionError(f"{what}: launches {launches}, graphs {held}; expected {want} "
                              f"of {mine}")
     return n_bad
@@ -2316,6 +2339,137 @@ def check_mlp_grad(card_line) -> dict:
               f"{r['plain_us']:.1f} us  [{card_line}]", flush=True)
         if not (rel <= MLP_GRAD_TOL and loss_err <= 1e-5):
             raise AssertionError(f"mlp_grad at the {what}: {r}")
+    return out
+
+
+def env_logic_bytes(logic, E: int, respawned: int) -> tuple[int, int]:
+    """(control's, score_respawn's) bytes: each plane the kernel reads or
+    writes counted once, a respawned env's columns for ``respawned`` envs."""
+    A, B = logic.cfg.num_agents, logic.layout.table.num_bodies
+    P, D = logic.layout.table.num_pairs, logic.cfg.obs_dim
+    a0 = B - A
+    # control: the action, the block's and agents' centres, the walls' and
+    # the block's vel and omega, agent_dist; vel', omega', force, torque, wake
+    control = E * (4 * (3 * A + 2 * (1 + A) + 3 * a0 + A + 6 * B) + B)
+    # score: the block's and agents' centres, the block's angle, the goal, the
+    # previous distances, blks and t, the contact flags; obs, reward, info t
+    # and done_status, the distances, block angle, blks, t, done_status, goal;
+    # done and truncated
+    score = E * (4 * (3 * A + 9) + A + 4 * (D + A + 11) + 2)
+    # a respawn: its uniforms; the bodies' six planes, the contact flags, the
+    # 17 words of each pair's contact state
+    score += respawned * (4 * (3 + 2 * A) + 29 * B + A + 1 + 62 * P)
+    return control, score
+
+
+def check_env_logic(dev, card_line) -> dict:
+    """Phase 6: the v0 env's ``control`` and ``score_respawn`` kernels
+    (``envs/v0_cuda.py``) at each of ``ENV_LOGIC_WORLDS``, from fresh spawns,
+    after ``ENV_LOGIC_STEPS`` random steps and at a step where every env
+    truncates: each against its plain version on the same inputs (control
+    against ``V0Env._control_plain``; score_respawn, with the spawn's draws,
+    against ``_finish``, ``reset_fast`` and the select from the same generator
+    state), the differing elements of the exact outputs and the largest
+    differences of the float ones, ``RESPAWNS`` of a traced launch; then each
+    per launch in a CUDA graph of ``ENV_LOGIC_CALLS`` beside its bound (its
+    bytes at 3.35 TB/s) and the plain version's time in the same kind of
+    graph (the plain score with its autoreset's draws, spawn and select)."""
+    out = {}
+    for env_id, E in ENV_LOGIC_WORLDS:
+        env = make(env_id, num_envs=E)
+        logic, gen = env.logic, env.generator
+        state, _obs = env.reset(seed=7)
+        act_gen = torch.Generator(device=dev).manual_seed(7)
+        act = lambda: torch.rand((E, env.cfg.act_dim), generator=act_gen, device=dev) * 2 - 1  # noqa: E731
+        params = cuda_graph.as_device_scalars(env.default_params(), dev)
+        for when in ("fresh", "stepped", "truncate"):
+            if when == "stepped":
+                for _ in range(ENV_LOGIC_STEPS):
+                    state = env.step(state, act())[0]
+            pre = state if when != "truncate" else state.replace(
+                t=torch.full_like(state.t, env.cfg.max_episode_steps - 1))
+            action = act().T
+            got_c = v0_cuda.control(logic, pre, action)
+            want_c = logic._control_plain(pre, action)
+            ticked = env_common.physics_fused(logic.layout, logic.cfg, want_c[0], pre.contacts,
+                                              *want_c[1:], pre.goal_contact, pre.wall_contact)
+            g0 = gen.get_state()
+
+            def plain_score():
+                ps, pobs, prew, pdone, pinfo = PuzzleEnvLogic._finish(logic, pre, *ticked, params)
+                rs, robs = logic.reset_fast(gen, E, params)
+                return (env_common.select(pdone, rs, ps), torch.where(pdone, robs, pobs), prew,
+                        pdone, pinfo)
+
+            want = plain_score()
+            gen.set_state(g0)
+            draws = logic._spawn_draws(gen, E)
+            with profiling.tracing():
+                got = v0_cuda.score_respawn(logic, pre, *tree_map(torch.clone, ticked), params,
+                                            draws)
+            record = profiling.RESPAWNS[-1]
+            n_done = int(want[3].sum())
+            exact = (got[0], got[3], got[4], got_c[0].vel, got_c[0].omega, got_c[2], got_c[3])
+            like = (want[0], want[3], want[4], want_c[0].vel, want_c[0].omega, want_c[2],
+                    want_c[3])
+            floats = [(got[0].agent_dist, want[0].agent_dist),
+                      (got[0].block_distance, want[0].block_distance)]
+            r = dict(
+                respawned=n_done, record=(record.respawned, record.scored),
+                # the state's floats that the kernel computes are held apart
+                differ=int(mismatches(
+                    (exact[0].replace(agent_dist=want[0].agent_dist,
+                                      block_distance=want[0].block_distance),) + exact[1:],
+                    like)),
+                obs_err=maxdiff(got[1], want[1]), reward_err=maxdiff(got[2], want[2]),
+                dist_err=max(maxdiff(a, b) for a, b in floats),
+                force_rel=maxdiff(got_c[1], want_c[1]) / max(float(want_c[1].abs().max()), 1e-30))
+
+            def graphed(fn, generators=()):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                state0 = [g.get_state() for g in generators]
+                with torch.cuda.stream(side):
+                    fn()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                for g in generators:
+                    graph.register_generator_state(g)
+                with torch.cuda.graph(graph):
+                    for _ in range(ENV_LOGIC_CALLS):
+                        fn()
+                for g, st in zip(generators, state0):
+                    g.set_state(st)
+                graph.replay()
+                torch.cuda.synchronize(dev)
+                return 1e3 * cuda_ms(graph.replay, 5) / ENV_LOGIC_CALLS
+
+            copies = tree_map(torch.clone, ticked)
+            r.update(
+                control_us=graphed(lambda: v0_cuda.control(logic, pre, action)),
+                control_plain_us=graphed(lambda: logic._control_plain(pre, action)),
+                score_us=graphed(lambda: v0_cuda.score_respawn(logic, pre, *copies, params,
+                                                               draws)),
+                score_plain_us=graphed(plain_score, (gen,)))
+            cb_, sb_ = env_logic_bytes(logic, E, n_done)
+            r.update(control_bytes=cb_, score_bytes=sb_,
+                     control_bound_us=1e6 * cb_ / yardstick.HBM_BYTES_PER_S,
+                     score_bound_us=1e6 * sb_ / yardstick.HBM_BYTES_PER_S)
+            out[(env_id, when)] = r
+            print(f"  env logic, {env_id} at {E} envs, {when} ({n_done} done): control "
+                  f"{r['control_us']:.2f} us per launch (bound {r['control_bound_us']:.3f} us: "
+                  f"{cb_:,} bytes; plain {r['control_plain_us']:.1f} us), score_respawn "
+                  f"{r['score_us']:.2f} us (bound {r['score_bound_us']:.3f} us: {sb_:,} bytes; "
+                  f"plain score and autoreset {r['score_plain_us']:.1f} us); against plain: "
+                  f"{r['differ']} elements differ in the exact outputs, obs {r['obs_err']:.2e} px, "
+                  f"reward {r['reward_err']:.2e}, distances {r['dist_err']:.2e} px, force "
+                  f"{r['force_rel']:.2e} of its largest; RESPAWNS (respawned, scored) "
+                  f"{r['record']}  [{card_line}]", flush=True)
+            if r["differ"] or r["record"] != (n_done, E) or not (
+                    r["obs_err"] <= 2e-4 and r["reward_err"] <= 2e-3 and r["dist_err"] <= 2e-4
+                    and r["force_rel"] <= 1e-6):
+                raise AssertionError(f"env logic kernels, {env_id} {when}: {r}")
+        env.close()
     return out
 
 
@@ -2579,13 +2733,14 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
-        builds = [pool.submit(m.KERNEL.build)
-                  for m in (step_cuda, solver_cuda, adam_fused, mlp_grad)]
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(kernel.build)
+                  for kernel in (step_cuda.KERNEL, solver_cuda.KERNEL, adam_fused.KERNEL,
+                                 mlp_grad.KERNEL, v0_cuda.CONTROL)]
         builds = [f.result() for f in builds]
     print(f"  built {', '.join(path.name for path, _ in builds)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, (_path, log) in zip(("adam_fused", "mlp_grad"), builds[2:]):
+    for name, (_path, log) in zip(("adam_fused", "mlp_grad", "env_v0"), builds[2:]):
         for line in log.splitlines():
             if "Function properties" in line or "registers" in line or "stack frame" in line:
                 print(f"  ptxas: {name}: {line.strip()}", flush=True)
@@ -2720,6 +2875,7 @@ def main() -> int:
     print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     print("== 6. kernels", flush=True)
+    env_logic = check_env_logic(dev, card_line)
     times = {env_id: time_kernels(dev, env_id, card_line) for env_id in VARIANTS}
     v0 = times[ENV_ID]
     print(f"  plain versions on {NUM_ENVS} v0 spawns {VI}/{PI}: world.step {plain_ms:.1f} ms per "
@@ -2786,6 +2942,14 @@ def main() -> int:
              **{f"{what.split()[0]}_{key}": r[key] for what, r in learner["mlp"].items()
                 for key in ("us", "plain_us", "gemm_us", "bound_us", "rel")},
              bound_by="operations"),
+        dict(common, name="env_v0",
+             source="gym_puzzles_tpu_torch/csrc/env_v0.cu", replaces=None,
+             **{f"{'v0' if env_id == ENV_ID else 'hv0'}_{when}_{key}": r[key]
+                for (env_id, when), r in env_logic.items()
+                for key in ("control_us", "control_bound_us", "control_plain_us", "score_us",
+                            "score_bound_us", "score_plain_us", "obs_err", "reward_err",
+                            "force_rel", "respawned")},
+             bound_by="bytes"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -37,11 +37,17 @@ Autoreset spawns draw from :attr:`VectorEnv.generator`, registered with the
 graph: a replay draws what the eager step would, and ``reset(seed=)``
 reseeds them.  :meth:`reset` stays eager.
 
+At v0 and Heavy-v0 on the card the env logic around the tick is two
+hand-written kernels (``envs/v0_cuda.py``), and the fast autoreset goes into
+the second (:attr:`VectorEnv.fused_respawn`): the spawn's uniforms are drawn
+for every env as before, and only the envs that end are spawned, in place.
+
 Spans (``utils/profiling.py``, recorded with tracing on): a step is the host
 span ``env.step`` (around the graph's ``graph.inputs`` / ``graph.launch`` /
 ``graph.outputs``), and on the device ``env.control``, ``env.tick`` and
 ``env.score`` (``envs/base.py``) and ``env.autoreset`` (the spawn and the
-selects).
+selects; with the fused respawn the spawn's four draws, the spawns
+themselves in ``env.score``).
 """
 
 from __future__ import annotations
@@ -155,13 +161,23 @@ class VectorEnv:
         ``params`` may hold Python floats or 0-d float32 tensors."""
         params = self.default_params() if params is None else params
         act = torch.as_tensor(action, dtype=torch.float32, device=self.device).T
-        state, obs, reward, done, info = self._step(state, act, params)
-        if self.auto_reset:
+        respawn = self.generator if self.fused_respawn else None
+        state, obs, reward, done, info = self._step(state, act, params, respawn=respawn)
+        if self.auto_reset and respawn is None:
             with device_span("env.autoreset", self.device):
                 r_state, r_obs = self._reset_batch(params)
                 state = cm.select(done, r_state, state)
                 obs = torch.where(done, r_obs, obs)
         return state, obs.T, reward, done, info
+
+    @property
+    def fused_respawn(self) -> bool:
+        """Whether a step takes its fast autoreset into the env logic's
+        kernels (``PuzzleEnvLogic.fused_logic``: v0 and Heavy-v0 on the
+        card), which spawn only the envs that end, from uniforms drawn for
+        every env as :meth:`_reset_batch` draws them."""
+        return (self.auto_reset and self.reset_mode == "fast"
+                and self.logic.fused_logic(self.device))
 
     @functools.cached_property
     def single_observation_space(self):

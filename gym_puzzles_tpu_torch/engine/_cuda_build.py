@@ -242,25 +242,28 @@ KERNELS: dict[str, "CudaKernel | PlainKernel"] = {}
 class PlainKernel:
     """A kernel source with a plain C interface and no world table
     (:func:`load_plain`; the learner's ``csrc/adam_fused.cu`` and
-    ``csrc/mlp_grad.cu``) whose launches
+    ``csrc/mlp_grad.cu``, the v0 env's ``csrc/env_v0.cu``) whose launches
     are counted as a :class:`CudaKernel`'s: :func:`launch_count` reads them,
     and a CUDA graph adds the launches it captured at each replay.  Its
-    wrapper calls the C function and adds to :attr:`launches`."""
+    wrapper calls the C function and adds to :attr:`launches`.  Kernels of
+    one source that are counted apart name the same ``library``: it is built
+    once."""
 
-    def __init__(self, name: str, source: str, functions: dict):
+    def __init__(self, name: str, source: str, functions: dict, library: str | None = None):
         self.name, self.source, self.functions = name, source, functions
+        self.library = library or name
         self.lib = None
         self.launches = 0
         self._lock = threading.Lock()
         KERNELS[name] = self
 
     def build(self, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
-        return build_plain(self.name, self.source, build_dir)
+        return build_plain(self.library, self.source, build_dir)
 
     def load(self):
         with self._lock:
             if self.lib is None:
-                self.lib = load_plain(self.name, self.source, self.functions)
+                self.lib = load_plain(self.library, self.source, self.functions)
         return self.lib
 
 

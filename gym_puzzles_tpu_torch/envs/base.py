@@ -107,15 +107,28 @@ class PuzzleEnvLogic:
         state = self.state_from_bodies(bodies, goal_pos)
         return state, self.observe(state, params)
 
-    def step_fused(self, state: cm.EnvState, action, params: RewardParams):
+    def fused_logic(self, device) -> bool:
+        """Whether a state on ``device`` takes hand-written kernels for the
+        env logic around the tick (``_control``, ``_finish``) and the fast
+        autoreset's spawn (``step_fused(..., respawn=)``).  None here: the
+        plain PyTorch ops."""
+        return False
+
+    def step_fused(self, state: cm.EnvState, action, params: RewardParams, respawn=None):
         """Batched step (action [act_dim, E]) with each engine tick in the
         fused CUDA kernel on the card, or the plain ``world.step`` on the
         CPU.  Returns (state, obs [obs_dim, E], reward, done, info).  Device
         spans: ``env.control``, ``env.tick`` at each tick (``step_cuda``),
-        ``env.score``."""
-        return self._step_with(state, action, params, cm.physics_fused)
+        ``env.score``.
 
-    def _step_with(self, state: cm.EnvState, action, params: RewardParams, physics):
+        ``respawn``, a generator, takes the fast autoreset into the step (a
+        logic whose :meth:`fused_logic` holds): the spawn's uniforms are
+        drawn from it for every env (device span ``env.autoreset``), and the
+        envs that end come back freshly spawned, with their new obs."""
+        return self._step_with(state, action, params, cm.physics_fused, respawn)
+
+    def _step_with(self, state: cm.EnvState, action, params: RewardParams, physics,
+                   respawn=None):
         dev = action.device
         with device_span("env.control", dev):
             bodies, force, torque, wake = self._control(state, action)
@@ -123,18 +136,29 @@ class PuzzleEnvLogic:
             self.layout, self.cfg, bodies, state.contacts, force, torque, wake,
             state.goal_contact, state.wall_contact,
         )
+        draws = None
+        if respawn is not None:
+            if not self.fused_logic(dev):
+                raise ValueError(f"{type(self).__name__} on {dev} has no fused respawn")
+            with device_span("env.autoreset", dev):
+                draws = self._spawn_draws(respawn, action.shape[-1])
         with device_span("env.score", dev):
-            return self._finish(state, bodies, contacts, goal_contact, wall_contact, params)
+            return self._finish(state, bodies, contacts, goal_contact, wall_contact, params,
+                                draws)
 
-    def step_batched(self, state: cm.EnvState, action, params: RewardParams):
+    def step_batched(self, state: cm.EnvState, action, params: RewardParams, respawn=None):
         """:meth:`step_fused` with each engine tick staged instead: the
         narrow phase and bookkeeping as PyTorch ops around the CUDA
         contact-solve kernel (the plain solve on the CPU)."""
-        return self._step_with(state, action, params, cm.physics_batched)
+        return self._step_with(state, action, params, cm.physics_batched, respawn)
 
     def _finish(self, state, bodies, contacts, goal_contact, wall_contact,
-                params: RewardParams):
-        """Post-physics: distances, obs, reward, termination, state assembly."""
+                params: RewardParams, draws=None):
+        """Post-physics: distances, obs, reward, termination, state assembly
+        (the plain version; ``draws`` are a fused respawn's, which it does
+        not take)."""
+        if draws is not None:
+            raise ValueError("the plain env logic takes no respawn draws")
         agent_dist, block_distance, block_angle = self._distances(bodies, state.goal_pos)
         obs, reward, done, done_status, blks = self._score(
             state, bodies, goal_contact, agent_dist, block_distance, block_angle, params

@@ -50,13 +50,16 @@ def distance(a, b):
     return torch.sqrt(d[..., 0, :] * d[..., 0, :] + d[..., 1, :] * d[..., 1, :])
 
 
+UNIT_FLOOR = 1e-12  # chebyshev_unit's floor on its divisor
+
+
 def chebyshev_unit(src, dst):
     """The reference's ``unitVector`` (00.py:134-138): difference normalized
     by the max-abs component (Chebyshev norm), biasing diagonals.  The floor
     guards the prob-0 coincident-centers division.  [..., 2, E]."""
     d = dst - src
     denom = torch.maximum(torch.abs(d[..., 0, :]), torch.abs(d[..., 1, :]))
-    return d / torch.clamp_min(denom, 1e-12)[..., None, :]
+    return d / torch.clamp_min(denom, UNIT_FLOOR)[..., None, :]
 
 
 def update_contact_flags(layout: WorldLayout, info: eng.StepInfo, goal_contact, wall_contact):
@@ -152,5 +155,14 @@ def body_rows(layout: WorldLayout, block_row, agent_rows):
 
 def uniform(gen: torch.Generator, lo, hi, shape):
     """Uniform floats in [lo, hi) drawn from ``gen`` on its device."""
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return scale(draw(gen, shape), lo, hi)
+
+
+def draw(gen: torch.Generator, shape):
+    """Uniform float32 in [0, 1) drawn from ``gen`` on its device."""
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
+def scale(u, lo, hi):
+    """Draws ``u`` in [0, 1) moved to [lo, hi): ``lo + (hi - lo) * u``."""
     return lo + (hi - lo) * u

@@ -18,10 +18,13 @@ from gym_puzzles_tpu_torch.engine import world as eng
 from gym_puzzles_tpu_torch.engine.types import device_const
 from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs import config as C
+from gym_puzzles_tpu_torch.envs import v0_cuda
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
 
 DS = 1.0  # downsample factor (00.py:38); kept explicit in the reward math
 TWO_PI = 2.0 * math.pi
+POW_BASE = 1.1  # the soft force's 1.1^(-agent_dist)
+CONTACT_REWARD = 0.25  # per agent touching the block
 
 
 class V0Env(PuzzleEnvLogic):
@@ -36,17 +39,34 @@ class V0Env(PuzzleEnvLogic):
     # -- spawn (00.py:299-378): block first, then agents; all uniform in the
     # bordered screen box ---------------------------------------------------
     def _spawn(self, gen, num_envs):
-        lay = self.layout
-        A, E = self.cfg.num_agents, num_envs
-        dev = gen.device
-        w, h = lay.world_w, lay.world_h
-        b = C.V0_BORDER
+        return self._spawn_from(self._spawn_draws(gen, num_envs))
 
-        bx = cm.uniform(gen, b, w - b, (E,))
-        by = cm.uniform(gen, b, h - b, (E,))
-        bang = cm.uniform(gen, 0.0, 2.0 * np.pi, (E,))
-        hi = device_const(np.array([w - b, h - b], np.float32), dev)[:, None]
-        axy = cm.uniform(gen, b, hi, (A, 2, E))
+    def _spawn_draws(self, gen, num_envs):
+        """The spawn's uniforms in [0, 1), in the order drawn: the block's x,
+        y and angle [E] each, the agents' positions [A, 2, E]."""
+        E = num_envs
+        return (cm.draw(gen, (E,)), cm.draw(gen, (E,)), cm.draw(gen, (E,)),
+                cm.draw(gen, (self.cfg.num_agents, 2, E)))
+
+    def spawn_bounds(self):
+        """(lo, hi) of the block's x, y and angle and of the agents' (x, y):
+        Python floats, and for the agents a float32 [2] hi."""
+        w, h, b = self.layout.world_w, self.layout.world_h, C.V0_BORDER
+        return ((b, w - b), (b, h - b), (0.0, 2.0 * np.pi),
+                (b, np.array([w - b, h - b], np.float32)))
+
+    def _spawn_from(self, draws):
+        """(Bodies, goal_pos [3, E]) of the spawn that ``draws`` (what
+        :meth:`_spawn_draws` returns) place."""
+        lay = self.layout
+        ubx, uby, uang, uaxy = draws
+        A, E = self.cfg.num_agents, ubx.shape[-1]
+        dev = ubx.device
+        (bx_lo, bx_hi), (by_lo, by_hi), (ang_lo, ang_hi), (a_lo, a_hi) = self.spawn_bounds()
+        bx = cm.scale(ubx, bx_lo, bx_hi)
+        by = cm.scale(uby, by_lo, by_hi)
+        bang = cm.scale(uang, ang_lo, ang_hi)
+        axy = cm.scale(uaxy, a_lo, device_const(a_hi, dev)[:, None])
 
         walls = device_const(np.asarray(self.wall_positions, np.float32), dev)
         origin = torch.cat([
@@ -73,8 +93,27 @@ class V0Env(PuzzleEnvLogic):
         agent_dist = cm.distance(ac * s, bc[None] * s)
         return agent_dist, block_distance, block_angle
 
-    # -- control (00.py:415-424): velocity set + soft assist ----------------
+    # -- the hand-written kernels on the card (envs/v0_cuda.py) -------------
+    def fused_logic(self, device) -> bool:
+        """A state on a CUDA device takes the kernels of ``envs/v0_cuda.py``:
+        ``control`` in :meth:`_control`, ``score_respawn`` in :meth:`_finish`."""
+        return torch.device(device).type == "cuda"
+
     def _control(self, state, action):
+        if self.fused_logic(action.device):
+            return v0_cuda.control(self, state, action)
+        return self._control_plain(state, action)
+
+    def _finish(self, state, bodies, contacts, goal_contact, wall_contact, params, draws=None):
+        if self.fused_logic(bodies.angle.device):
+            return v0_cuda.score_respawn(self, state, bodies, contacts, goal_contact,
+                                         wall_contact, params, draws)
+        return super()._finish(state, bodies, contacts, goal_contact, wall_contact, params,
+                               draws)
+
+    # -- control (00.py:415-424): velocity set + soft assist ----------------
+    def _control_plain(self, state, action):
+        """The plain version of the ``control`` kernel: what the CPU runs."""
         lay = self.layout
         A = self.cfg.num_agents
         E = action.shape[-1]
@@ -89,7 +128,7 @@ class V0Env(PuzzleEnvLogic):
         # soft force: per agent, 1.1^(-agent_dist) along the Chebyshev unit
         # vector agent->block, accumulated on the block (quirks #3, #9)
         bc, ac = cm.centers(lay, bodies)
-        mag = torch.pow(1.1, -state.agent_dist)  # [A, E]
+        mag = torch.pow(POW_BASE, -state.agent_dist)  # [A, E]
         unit = cm.chebyshev_unit(ac, bc[None])  # [A, 2, E]
         block_force = (mag[:, None] * unit).sum(dim=0)
 
@@ -141,7 +180,7 @@ class V0Env(PuzzleEnvLogic):
         delta_agent = state.agent_dist - agent_dist
         reward = reward + (delta_agent * params.weight_delta_agent * DS / 4.0).sum(dim=0)
         reward = reward - (params.weight_agent_dist * agent_dist * DS / 4.0).sum(dim=0)
-        reward = reward + 0.25 * goal_contact.sum(dim=0, dtype=torch.int32)
+        reward = reward + CONTACT_REWARD * goal_contact.sum(dim=0, dtype=torch.int32)
 
         reward = reward + (blks - state.blks_in_place) * C.V0_BLOCK_REWARD
         done = blks == 1

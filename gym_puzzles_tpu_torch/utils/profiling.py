@@ -36,7 +36,10 @@ CUDA graph capture -- its name, the seconds of its warm-up and capture, and
 the kernel nodes (and all nodes) of the captured graph; :data:`LIVE_PAIRS`,
 kept with tracing on only, one record of kernel A's load per world state
 that :func:`count_live_pairs` is given (the learner gives the state each
-rollout ends in, after its update's spans have closed).
+rollout ends in, after its update's spans have closed); :data:`RESPAWNS`,
+kept with tracing on only, one record per tracing block of what the v0
+env's ``score_respawn`` kernel did there (envs respawned, env-steps scored),
+which it adds up on the device through :func:`respawn_counts`.
 
 :func:`trace` is the operator's exporter: the profiler and tracing together
 over a block, written as one Chrome trace (``<dir>/trace.json``) whose rows
@@ -123,6 +126,20 @@ class LivePairRecord:
 LIVE_PAIRS: list[LivePairRecord] = []  # every record of this process, in order
 
 
+@dataclasses.dataclass
+class RespawnRecord:
+    """What the v0 env's ``score_respawn`` kernel (``envs/v0_cuda.py``) did
+    over one tracing block on one device: the envs it ``respawned`` and the
+    env-steps it ``scored``, each with its fast autoreset on."""
+
+    device: str
+    respawned: int
+    scored: int
+
+
+RESPAWNS: list[RespawnRecord] = []  # every record of this process, in order
+
+
 class Trace:
     """What one :func:`tracing` block recorded, filled in when it ends:
     :attr:`spans` (host spans in the order they opened, then device spans in
@@ -197,12 +214,15 @@ class _Recorder:
         self.launched = 0  # device stamps launched in this block
         self.device: torch.device | None = None
         self.cpu_ring: list = []
+        self.counted: set = set()  # devices whose respawn counter was handed out
 
 
 _REC = _Recorder()
 SITES: dict[str, int] = {}  # device span name -> site; never renumbered (graphs hold the codes)
 # CUDA device index -> (ring, count); kept for the process: graphs hold their addresses
 _RINGS: dict[int, tuple] = {}
+# device -> int64 [2] counter of RESPAWNS (respawned, scored); kept likewise
+_RESPAWN_COUNTS: dict[str, torch.Tensor] = {}
 _LIB = []
 
 
@@ -359,6 +379,28 @@ def count_live_pairs(table, state, dt: float) -> LivePairRecord | None:
     return rec
 
 
+def respawn_counts(device) -> torch.Tensor | None:
+    """With tracing on, the int64 [2] counter on ``device`` that the v0 env's
+    ``score_respawn`` kernel adds to (envs respawned, env-steps scored; a
+    graph captured with tracing on holds its address), read into
+    :data:`RESPAWNS` and set to 0 when the tracing block ends.  None with
+    tracing off: the kernel then counts nothing."""
+    if not _REC.on:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    _REC.counted.add(str(device))
+    held = _RESPAWN_COUNTS.get(str(device))
+    if held is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the respawn counter is made outside a CUDA graph capture: a "
+                               "graph's eager warm-up counts first")
+        held = _RESPAWN_COUNTS[str(device)] = torch.zeros((2,), dtype=torch.int64,
+                                                          device=device)
+    return held
+
+
 def launched() -> int:
     """Device stamps launched so far in the open tracing block."""
     return _REC.launched
@@ -390,13 +432,29 @@ def tracing():
     try:
         yield out
     except BaseException:
+        for _device, counts in _respawn_counters(r):
+            counts.zero_()
         r.__init__()  # what the block recorded is incomplete: dropped
         raise
     r.on = False
     try:
         _fill(out, r)
+        for device, counts in _respawn_counters(r):
+            respawned, scored = counts.tolist()  # a host read: after the block's work
+            counts.zero_()
+            if scored:
+                RESPAWNS.append(RespawnRecord(device, respawned, scored))
     finally:
         r.__init__()
+
+
+def _respawn_counters(r: _Recorder) -> list:
+    """(device, counter) of the respawn counters the block may have added
+    to: those handed out in it, and its stamps' device's (a graph captured
+    with tracing on adds to its counter at each replay).  A block on the CPU
+    touches no counter on the card."""
+    devices = set(r.counted) | ({str(r.device)} if r.device is not None else set())
+    return [(d, _RESPAWN_COUNTS[d]) for d in sorted(devices) if d in _RESPAWN_COUNTS]
 
 
 def _fill(out: Trace, r: _Recorder):

@@ -11,7 +11,7 @@ CPU, where the contact solve runs its plain version.
   ``VectorEnv(backend='xla')`` on v0: a 20-step drive, the checks of
   ``tests/test_torch_v0.py``.
 * The registry's backend names, and one launch counter per kernel (the
-  learner's ``adam_fused`` among them).
+  learner's ``adam_fused`` and the v0 env's two among them).
 """
 
 import numpy as np
@@ -25,6 +25,7 @@ from gym_puzzles_tpu_torch.api.registry import _logic
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import solver_cuda, step_cuda
 from gym_puzzles_tpu_torch.engine import world as tw
+from gym_puzzles_tpu_torch.envs import v0_cuda
 from gym_puzzles_tpu_torch.train import adam_fused, mlp_grad
 from tests.torch_port_helpers import (both_init, compare_drive, jax_step, maxdiff,
                                       small_tables)
@@ -102,25 +103,32 @@ def test_backend_names_and_defaults():
 
 
 def test_one_launch_counter_per_kernel():
-    assert set(cb.KERNELS) == {"step_fused", "solve_contacts", "adam_fused", "mlp_grad"}
+    assert set(cb.KERNELS) == {"step_fused", "solve_contacts", "adam_fused", "mlp_grad",
+                               "v0_control", "v0_score_respawn"}
     assert cb.KERNELS["step_fused"] is step_cuda.KERNEL
     assert cb.KERNELS["solve_contacts"] is solver_cuda.KERNEL
     assert cb.KERNELS["adam_fused"] is adam_fused.KERNEL  # the learner's, no world table
     assert cb.KERNELS["mlp_grad"] is mlp_grad.KERNEL  # the learner's, no world table
+    assert cb.KERNELS["v0_control"] is v0_cuda.CONTROL  # the v0 env's, one library
+    assert cb.KERNELS["v0_score_respawn"] is v0_cuda.SCORE
     try:
         step_cuda.KERNEL.launches, solver_cuda.KERNEL.launches = 3, 5
         adam_fused.KERNEL.launches, mlp_grad.KERNEL.launches = 7, 11
+        v0_cuda.CONTROL.launches, v0_cuda.SCORE.launches = 13, 17
         assert step_cuda.launch_count() == 3  # the old call still reads kernel A
         assert step_cuda.launch_count("step_fused") == 3
         assert step_cuda.launch_count("solve_contacts") == 5
         assert cb.launch_count("adam_fused") == 7
         assert cb.launch_count("mlp_grad") == 11
+        assert cb.launch_count("v0_control") == 13
+        assert cb.launch_count("v0_score_respawn") == 17
         with pytest.raises(KeyError):
             step_cuda.launch_count("no_such_kernel")
     finally:
         step_cuda.reset_launch_count()
     assert step_cuda.launch_count() == 0 and cb.launch_count("solve_contacts") == 0
     assert cb.launch_count("adam_fused") == 0 and cb.launch_count("mlp_grad") == 0
+    assert cb.launch_count("v0_control") == 0 and cb.launch_count("v0_score_respawn") == 0
     # a CPU step launches nothing
     env = gpt.make("MultiRobotPuzzle-v0", num_envs=2, device="cpu", backend="pallas",
                    velocity_iters=2, position_iters=1)
