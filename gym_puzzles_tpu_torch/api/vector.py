@@ -47,7 +47,9 @@ span ``env.step`` (around the graph's ``graph.inputs`` / ``graph.launch`` /
 ``graph.outputs``), and on the device ``env.control``, ``env.tick`` and
 ``env.score`` (``envs/base.py``) and ``env.autoreset`` (the spawn and the
 selects; with the fused respawn the spawn's four draws, the spawns
-themselves in ``env.score``).
+themselves in ``env.score``).  After the span, every
+:data:`LIVE_PAIRS_EVERY`-th step of a tracing block records kernel A's load
+on the state it returns (``profiling.LIVE_PAIRS``, site ``env.step``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ from gym_puzzles_tpu_torch.envs import common as cm
 from gym_puzzles_tpu_torch.envs.base import PuzzleEnvLogic
 from gym_puzzles_tpu_torch.envs.config import RewardParams
 from gym_puzzles_tpu_torch.utils.cuda_graph import GraphedStep, weak_call
-from gym_puzzles_tpu_torch.utils.profiling import device_span, span
+from gym_puzzles_tpu_torch.utils.profiling import count_live_pairs, device_span, span
+
+LIVE_PAIRS_EVERY = 25  # traced steps per record of kernel A's load
 
 
 def resolve_device(device=None) -> torch.device:
@@ -149,11 +153,18 @@ class VectorEnv:
             params = self.default_params() if params is None else params
             act = torch.as_tensor(action, dtype=torch.float32, device=self.device)
             if self.device.type != "cuda":
-                return self.step_eager(state, act, params)
-            if self._graph is None:
-                self._graph = GraphedStep(weak_call(self.step_eager), self.device,
-                                          (self.generator,), self.graph_pool, name="env.step")
-            return self._graph(state, act, params)
+                out = self.step_eager(state, act, params)
+            else:
+                if self._graph is None:
+                    self._graph = GraphedStep(weak_call(self.step_eager), self.device,
+                                              (self.generator,), self.graph_pool,
+                                              name="env.step")
+                out = self._graph(state, act, params)
+        # tracing on: kernel A's load on the state returned, outside the span
+        # and the graph (a no-op with tracing off)
+        count_live_pairs(self.logic.layout.table, out[0], self.cfg.dt, site="env.step",
+                         every=LIVE_PAIRS_EVERY)
+        return out
 
     def step_eager(self, state: cm.EnvState, action, params: RewardParams | None = None):
         """:meth:`step` as eager PyTorch ops and kernel launches: what the CUDA

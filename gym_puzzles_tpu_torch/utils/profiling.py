@@ -35,8 +35,10 @@ parent's.  A host span opened with ``step=True`` (``env.step``,
 CUDA graph capture -- its name, the seconds of its warm-up and capture, and
 the kernel nodes (and all nodes) of the captured graph; :data:`LIVE_PAIRS`,
 kept with tracing on only, one record of kernel A's load per world state
-that :func:`count_live_pairs` is given (the learner gives the state each
-rollout ends in, after its update's spans have closed); :data:`RESPAWNS`,
+that :func:`count_live_pairs` is given, marked with the site that gave it
+(``ppo.update``: the learner gives the state each rollout ends in, after its
+update's spans have closed; ``env.step``: ``VectorEnv.step`` gives every
+25th state it returns in a tracing block, outside its span); :data:`RESPAWNS`,
 kept with tracing on only, one record per tracing block of what the v0
 env's ``score_respawn`` kernel did there (envs respawned, env-steps scored),
 which it adds up on the device through :func:`respawn_counts`.
@@ -112,8 +114,9 @@ class LivePairRecord:
     over the envs, ``warp_max`` the mean over warps of the most any env of
     the warp has (a warp runs as long as its most loaded env), ``max`` the
     most of any env -- at ``envs_per_warp`` (kernel A's build on a CUDA
-    device; 1 on the CPU, which ticks with the plain version), and the
-    ``size_class`` of kernel A that the world's table takes."""
+    device; 1 on the CPU, which ticks with the plain version), the
+    ``size_class`` of kernel A that the world's table takes, and the
+    ``site`` that took the record (:func:`count_live_pairs`)."""
 
     num_envs: int
     mean: float
@@ -121,6 +124,7 @@ class LivePairRecord:
     max: float
     envs_per_warp: int
     size_class: int
+    site: str
 
 
 LIVE_PAIRS: list[LivePairRecord] = []  # every record of this process, in order
@@ -215,6 +219,7 @@ class _Recorder:
         self.device: torch.device | None = None
         self.cpu_ring: list = []
         self.counted: set = set()  # devices whose respawn counter was handed out
+        self.live_calls: dict = {}  # site -> count_live_pairs calls in this block
 
 
 _REC = _Recorder()
@@ -354,14 +359,20 @@ def _stamp(code: int, device: torch.device):
     r.launched += 1
 
 
-def count_live_pairs(table, state, dt: float) -> LivePairRecord | None:
+def count_live_pairs(table, state, dt: float, site: str = "ppo.update",
+                     every: int = 1) -> LivePairRecord | None:
     """With tracing on, append to :data:`LIVE_PAIRS` the load kernel A
     meets at the next tick from ``state`` (an ``EnvState``): every dynamic
     body woken, as a step's control wakes the block and each commanded
-    agent, and no force.  Its ops run eagerly where they are called: call it
+    agent, and no force.  The record is marked with ``site``, and taken at
+    every ``every``-th call from that site in the open tracing block (None
+    from the others).  Its ops run eagerly where they are called: call it
     outside any CUDA graph capture and outside the spans that time a layer.
     With tracing off it does nothing and returns None."""
     if not _REC.on:
+        return None
+    calls = _REC.live_calls[site] = _REC.live_calls.get(site, 0) + 1
+    if calls % every:
         return None
     from gym_puzzles_tpu_torch.engine import _cuda_build as cb
     from gym_puzzles_tpu_torch.engine import step_cuda
@@ -374,7 +385,7 @@ def count_live_pairs(table, state, dt: float) -> LivePairRecord | None:
     st = cb.live_pair_stats(live, per_warp)
     rec = LivePairRecord(num_envs=int(live.shape[-1]), mean=st["mean"],
                          warp_max=st["warp_max"], max=st["max"], envs_per_warp=per_warp,
-                         size_class=cb.size_class(table))
+                         size_class=cb.size_class(table), site=site)
     LIVE_PAIRS.append(rec)
     return rec
 

@@ -10,9 +10,13 @@ and ``live_pair_stats``) on the CPU at 8 envs.
   update, after the update's spans, of the state the rollout ended in, in
   the size class of the env's table, and the outputs are those of tracing
   off.
-* ``cuda``-marked (skipped without a card): the learner's graphs captured
-  with tracing on hold exactly their spans' stamps more than those captured
-  with it off, so the counter puts no node into a graph.
+* ``VectorEnv.step`` with tracing off takes no record; with it on, one of
+  every 25th state it returns in a tracing block, marked ``env.step``, and
+  the outputs are those of tracing off.
+* ``cuda``-marked (skipped without a card): the learner's graphs and the
+  env step's graph captured with tracing on hold exactly their spans'
+  stamps more than those captured with it off, so the counter puts no node
+  into a graph.
 """
 
 import contextlib
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 import gym_puzzles_tpu_torch as gpt
+from gym_puzzles_tpu_torch.api import vector
 from gym_puzzles_tpu_torch.engine import _cuda_build as cb
 from gym_puzzles_tpu_torch.engine import step_cuda, world
 from gym_puzzles_tpu_torch.train.ppo import PPO, PPOConfig
@@ -114,6 +119,49 @@ def test_count_live_pairs_is_a_no_op_with_tracing_off(monkeypatch):
     assert profiling.LIVE_PAIRS == [rec] and rec.size_class == 1 and rec.mean > 0
 
 
+def _env_steps(env, n, trace_on):
+    """``n`` steps of ``env`` from its seed-2 spawn with seeded random
+    actions, tracing on or off -> (every output, the tracing block's trace)."""
+    state, _ = env.reset(seed=2)
+    g = torch.Generator().manual_seed(3)
+    acts = torch.rand((n, env.num_envs, env.cfg.act_dim), generator=g).to(env.device) * 2 - 1
+    outs = []
+    with profiling.tracing() if trace_on else contextlib.nullcontext() as tr:
+        for k in range(n):
+            out = env.step(state, acts[k])
+            state = out[0]
+            outs.append(out)
+    return outs, tr
+
+
+def test_env_steps_take_a_record_every_25th_traced_step(monkeypatch):
+    monkeypatch.setattr(profiling, "LIVE_PAIRS", [])
+    env = gpt.make("MultiRobotPuzzle-v0", num_envs=8, device="cpu", velocity_iters=4,
+                   position_iters=2)
+    off, _ = _env_steps(env, 100, False)
+    assert profiling.LIVE_PAIRS == []
+    on, tr = _env_steps(env, 100, True)
+    recs = profiling.LIVE_PAIRS
+    assert vector.LIVE_PAIRS_EVERY == 25 and len(recs) == 4
+    assert {(r.site, r.num_envs, r.size_class) for r in recs} == {("env.step", 8, 0)}
+    table = env.logic.layout.table
+    for rec, k in zip(recs, (24, 49, 74, 99)):
+        s = on[k][0]
+        b = s.bodies
+        dyn = torch.as_tensor(~table.is_static)[:, None].expand_as(b.awake)
+        live = cb.live_pairs(table, b, s.contacts, torch.zeros_like(b.vel),
+                             torch.zeros_like(b.omega), dyn, DT)
+        assert rec.mean == pytest.approx(float(live.sum(dim=0).float().mean()))
+    # no span of its own, and the steps' outputs those of tracing off
+    assert {s.name for s in tr.spans if s.clock == "host"} == {"env.step"}
+    assert tr.steps == 100
+    for a, b in zip(profiling._leaves(off), profiling._leaves(on)):
+        assert a.tobytes() == b.tobytes()
+    # a new tracing block counts its steps from 0
+    _env_steps(env, 24, True)
+    assert len(profiling.LIVE_PAIRS) == 4
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -154,4 +202,25 @@ def test_the_counter_adds_no_graph_node_on_card(cuda_device, monkeypatch):
     assert len(profiling.LIVE_PAIRS) == 2
     rec = profiling.LIVE_PAIRS[-1]
     assert (rec.num_envs, rec.size_class) == (256, 1)
+    assert rec.envs_per_warp == step_cuda.KERNEL.envs_per_warp()
+
+
+@pytest.mark.cuda
+def test_the_env_step_counter_adds_no_graph_node_on_card(cuda_device, monkeypatch):
+    monkeypatch.setattr(profiling, "LIVE_PAIRS", [])
+    monkeypatch.setattr(profiling, "_RINGS", {})
+    env = gpt.make("MultiRobotPuzzle-v0", num_envs=256, device=cuda_device)
+    _env_steps(env, 30, False)  # captures the step's graph, tracing off
+    assert profiling.LIVE_PAIRS == []
+    off = profiling.CAPTURES[-1]
+    traced = gpt.make("MultiRobotPuzzle-v0", num_envs=256, device=cuda_device)
+    _outs, _tr = _env_steps(traced, 1, True)  # captures the step's graph, tracing on
+    on = profiling.CAPTURES[-1]
+    _outs, tr = _env_steps(traced, 25, True)  # replays
+    assert off.name == on.name == "env.step" and on.traced and not off.traced
+    stamps = 2 * len([s for s in tr.spans if s.clock == "device"]) // 25
+    assert on.kernel_nodes - off.kernel_nodes == stamps
+    assert len(profiling.LIVE_PAIRS) == 1
+    rec = profiling.LIVE_PAIRS[-1]
+    assert (rec.site, rec.num_envs, rec.size_class) == ("env.step", 256, 0)
     assert rec.envs_per_warp == step_cuda.KERNEL.envs_per_warp()
